@@ -1,0 +1,36 @@
+"""Device selection: the card by default, the CPU only when asked for."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` or ``"cuda"`` -> ``cuda:0``; ``"cpu"`` only when asked.
+
+    Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or by
+    default) and none is present: the port never falls back to the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    index = 0 if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} requested but only "
+                           f"{torch.cuda.device_count()} CUDA device(s) exist")
+    return torch.device("cuda", index)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for queued work on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,96 @@
+"""Decode attention wrapper: plain version on the CPU, CUDA kernel on the card.
+
+``decode_attention`` takes the model cache layout as
+``repro.kernels.decode_attention.ops`` does: q ``[B, H, hd]``, cache k/v
+``[B, L, K, hd]``, ``slot_pos [L]`` int32 (-1 = empty) and ``cur_pos``. A CPU
+tensor goes to the plain version (``ref.py``); a CUDA tensor launches
+``csrc/decode_attention.cu``, which reads the cache in place, or raises.
+``decode_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIM = 128
+MAX_GROUP = 16
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention")
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.decode_attention_fwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [i64p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_void_p])
+    lib.decode_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(q, cache_k, cache_v, slot_pos):
+    if q.dim() != 3 or cache_k.dim() != 4:
+        raise ValueError("decode_attention expects q [B,H,hd], cache [B,L,K,hd]")
+    B, H, hd = q.shape
+    if (cache_k.shape != cache_v.shape or cache_k.shape[0] != B
+            or cache_k.shape[3] != hd):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(cache_k.shape)}, v {tuple(cache_v.shape)}")
+    if H % cache_k.shape[2]:
+        raise ValueError(f"query heads {H} not a multiple of kv heads "
+                         f"{cache_k.shape[2]}")
+    if slot_pos.shape != (cache_k.shape[1],):
+        raise ValueError(f"slot_pos must be [L], got {tuple(slot_pos.shape)}")
+    if not (q.device == cache_k.device == cache_v.device == slot_pos.device):
+        raise ValueError("q, cache and slot_pos must be on one device")
+    if not (q.dtype == cache_k.dtype == cache_v.dtype):
+        raise ValueError("q and the cache must have one dtype")
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, slot_pos: torch.Tensor,
+                     cur_pos: int, *, window: int = 0) -> torch.Tensor:
+    """Returns [B, H, hd] in q's dtype. ``cur_pos`` is a Python int."""
+    _check_inputs(q, cache_k, cache_v, slot_pos)
+    cur_pos = int(cur_pos)
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, cache_k, cache_v, slot_pos,
+                                          cur_pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, hd = q.shape
+    L, K = cache_k.shape[1], cache_k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attention kernel takes float32/bfloat16, got {q.dtype}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"decode_attention kernel takes head_dim {HEAD_DIM}, got {hd}")
+    if H // K > MAX_GROUP:
+        raise ValueError(f"group size {H // K} exceeds {MAX_GROUP}")
+    if slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous():
+        raise ValueError("slot_pos must be a contiguous int32 tensor")
+    if any(t.stride(-1) != 1 for t in (q, cache_k, cache_v)):
+        raise ValueError("decode_attention kernel needs a contiguous head dim")
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    strides = [_build.int64_array(t.stride()[:-1])
+               for t in (q, cache_k, cache_v, out)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.decode_attention_fwd(
+            _DTYPES[q.dtype], q.data_ptr(), cache_k.data_ptr(),
+            cache_v.data_ptr(), slot_pos.data_ptr(), out.data_ptr(),
+            B, L, H, K, hd, *strides, cur_pos, int(window),
+            1.0 / math.sqrt(hd), stream)
+    _build.check(lib, err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

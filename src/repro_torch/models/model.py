@@ -1,0 +1,163 @@
+"""Decoder-only causal LM of the port (counterpart of ``repro.models.model``).
+
+Only the dense ``attn``/``local`` blocks are ported. Layers are an
+``nn.ModuleList`` in depth order, where the JAX package scans over stacked
+pattern repeats; ``repro_torch.convert`` maps one layout onto the other.
+The model serves (prefill and decode), so parameters carry no gradient.
+
+  prefill      full prompt -> logits of the last position, filled caches
+  decode_step  one token against the caches, which it updates in place
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import Attention, Cache, init_kv_cache
+from repro_torch.models.layers import MLP, Dense, Embedding, RMSNorm
+
+_NOT_PORTED = {
+    "rglru": "RecurrentGemma (rglru_scan kernel)",
+    "mlstm": "xLSTM (mlstm_chunk kernel)",
+    "slstm": "xLSTM (mlstm_chunk kernel)",
+}
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for kind in cfg.layer_kinds():
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}, "
+                "ROADMAP.md queue 1")
+        if kind not in ("attn", "local"):
+            raise ValueError(kind)
+    unported = {
+        "moe": cfg.moe is not None,
+        "tie_embeddings": cfg.tie_embeddings,
+        "num_codebooks": cfg.num_codebooks > 0,
+        "input_mode=embeddings": cfg.input_mode != "tokens",
+        "logit_softcap": bool(cfg.logit_softcap),
+        "layernorm": cfg.norm != "rmsnorm",
+    }
+    missing = [k for k, v in unported.items() if v]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet "
+            "(ROADMAP.md, queue 1: other model families)")
+
+
+def _theta(cfg: ModelConfig, kind: str) -> float:
+    if kind == "local" and cfg.rope_theta_local:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
+class Block(nn.Module):
+    """Pre-norm attention block with a gated MLP (``apply_block``, dense path)."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.kind = kind
+        self.window = cfg.window_size if kind == "local" else 0
+        self.pre_norm = RMSNorm(cfg.d_model, device=device)
+        self.mixer = Attention(cfg, window=self.window, theta=_theta(cfg, kind),
+                               dtype=dtype, device=device)
+        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.pre_norm.reset_parameters()
+        self.mixer.reset_parameters(generator)
+        self.mlp_norm.reset_parameters()
+        self.mlp.reset_parameters(generator)
+
+    def _finish(self, x, y):
+        x = x + y
+        return x + self.mlp(self.mlp_norm(x))
+
+    def prefill(self, x, max_len: int):
+        y, cache = self.mixer.prefill(self.pre_norm(x), max_len)
+        return self._finish(x, y), cache
+
+    def decode(self, x, cache: Cache, cur_pos: int):
+        y, cache = self.mixer.decode(self.pre_norm(x), cache, cur_pos)
+        return self._finish(x, y), cache
+
+
+class CausalLM(nn.Module):
+    """Parameters are allocated uninitialised; see ``init_params``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        dtype = getattr(torch, cfg.param_dtype)
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype,
+                               device=device)
+        self.layers = nn.ModuleList(
+            Block(kind, cfg, dtype=dtype, device=device)
+            for kind in cfg.layer_kinds())
+        self.final_norm = RMSNorm(cfg.d_model, device=device)
+        self.head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def copy_to(self, device) -> "CausalLM":
+        """A copy of this model with its parameters on ``device``."""
+        other = CausalLM(self.cfg, device=device)
+        other.load_state_dict(self.state_dict())
+        return other
+
+    def _head_out(self, x):
+        return self.head(self.final_norm(x)).float()
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> CausalLM:
+    """Random weights drawn on ``device`` as ``repro.models.model.init_params``
+    draws them: dense kernels normal·1/√in, embedding normal·0.02 (both drawn
+    in float32, stored in ``param_dtype``), zero biases, zero norm scales."""
+    model = CausalLM(cfg, device=device)
+    with torch.no_grad():
+        model.embed.reset_parameters(generator)
+        model.final_norm.reset_parameters()
+        model.head.reset_parameters(generator)
+        for block in model.layers:
+            block.reset_parameters(generator)
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device=None) -> List[Cache]:
+    """One empty KV cache per layer."""
+    return [init_kv_cache(cfg, batch, max_len,
+                          window=cfg.window_size if kind == "local" else 0,
+                          dtype=dtype, device=device)
+            for kind in cfg.layer_kinds()]
+
+
+def prefill(model: CausalLM, tokens: torch.Tensor, *,
+            max_len: int = 0) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens [B, S] -> (float32 logits of the last position [B, V], caches)."""
+    x = model.embed(tokens, model.compute_dtype)
+    caches = []
+    for block in model.layers:
+        x, cache = block.prefill(x, max_len)
+        caches.append(cache)
+    return model._head_out(x[:, -1:])[:, 0], caches
+
+
+def decode_step(model: CausalLM, caches: List[Cache], tokens: torch.Tensor,
+                cur_pos: int) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens [B, 1] at position ``cur_pos`` (uniform over the batch) ->
+    (float32 logits [B, V], caches). The caches are updated in place."""
+    x = model.embed(tokens, model.compute_dtype)
+    for block, cache in zip(model.layers, caches):
+        x, _ = block.decode(x, cache, cur_pos)
+    return model._head_out(x)[:, 0], caches

@@ -1,0 +1,124 @@
+"""Port parity: the port's dense model vs repro.models.model on reduced configs.
+
+Weights come from the JAX ``init_params``, with every bias and norm scale
+overwritten by random non-zero values (they are zero at init and would hide a
+bug), and are carried across with ``params_from_jax``. Prefill logits, every
+layer's cache and four decode steps' logits are compared in float32 at atol
+1e-4 (a whole model: several layers of float32 products summed in another
+order), and the greedy tokens must be identical.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as JC  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch import configs as TC  # noqa: E402
+from repro_torch.convert import cache_to_jax_layout, params_from_jax  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+ATOL = 1e-4
+
+
+def configs(arch: str):
+    """(JAX cfg, port cfg). ``-local`` adds a sliding-window layer and a tail."""
+    base = arch.removesuffix("-local")
+    jcfg = JC.reduced_config(JC.ARCHS[base])
+    tcfg = TC.reduced_config(TC.get_config(base))
+    if arch.endswith("-local"):
+        kw = dict(block_pattern=("local", "attn"), num_layers=3, window_size=8)
+        jcfg, tcfg = jcfg.with_(**kw), tcfg.with_(**kw)
+    return jcfg, tcfg
+
+
+def jax_params(cfg, seed: int):
+    """JAX init_params with biases and norm scales made random and non-zero."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        leaf = np.array(leaf)
+        if path[-1].key in ("bias", "scale"):
+            leaf = (rng.normal(size=leaf.shape) * 0.3 + 0.1).astype(leaf.dtype)
+        return leaf
+
+    params = jax.device_get(JM.init_params(jax.random.PRNGKey(seed), cfg))
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b"])
+def test_port_config_matches_jax_config(arch):
+    jcfg, tcfg = configs(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    full_j, full_t = JC.ARCHS[arch], TC.get_config(arch)
+    assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "qwen2-7b-local"])
+def test_prefill_cache_and_decode_match_jax(arch):
+    jcfg, tcfg = configs(arch)
+    params = jax_params(jcfg, seed=3)
+    model = params_from_jax(params, tcfg, device="cpu")
+    jparams = jax.tree.map(jnp.asarray, params)
+    B, S, steps = 2, 12, 4
+    prompt = np.random.default_rng(5).integers(0, jcfg.vocab_size, (B, S),
+                                               dtype=np.int32)
+    max_len = S + steps
+    with torch.inference_mode():
+        t_logits, t_cache = TM.prefill(model, torch.from_numpy(prompt).long(),
+                                       max_len=max_len)
+    j_logits, j_cache = JM.prefill(jparams, jnp.asarray(prompt), jcfg,
+                                   max_len=max_len)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=ATOL)
+
+    got = cache_to_jax_layout(t_cache, tcfg)
+    want = jax.device_get(j_cache)
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(want))
+    assert len(flat_got) == len(flat_want) > 0
+    for path, leaf in flat_got:
+        ref = flat_want[path]
+        assert leaf.shape == ref.shape, path
+        if path[-1].key == "pos":
+            np.testing.assert_array_equal(leaf, ref)
+        else:
+            np.testing.assert_allclose(leaf, ref, atol=ATOL)
+
+    tok = np.argmax(np.asarray(j_logits), axis=-1)
+    assert np.array_equal(t_logits.argmax(-1).numpy(), tok)
+    for i in range(steps):
+        with torch.inference_mode():
+            t_logits, t_cache = TM.decode_step(
+                model, t_cache, torch.from_numpy(tok[:, None]).long(), S + i)
+        j_logits, j_cache = JM.decode_step(jparams, j_cache,
+                                           jnp.asarray(tok[:, None]),
+                                           jnp.int32(S + i), jcfg)
+        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                                   atol=ATOL)
+        tok = np.argmax(np.asarray(j_logits), axis=-1)
+        assert np.array_equal(t_logits.argmax(-1).numpy(), tok)
+
+
+def test_unported_archs_and_blocks_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TC.get_config("xlstm-1.3b")
+    cfg = TC.reduced_config(TC.get_config("qwen2-7b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.CausalLM(cfg.with_(block_pattern=("rglru", "attn")))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.CausalLM(cfg.with_(moe=TC.MoEConfig(4, 2, 32)))
+
+
+def test_init_params_on_device_is_seeded():
+    cfg = TC.reduced_config(TC.get_config("qwen2-7b"))
+    a = TM.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    b = TM.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(pa, pb), name
+        assert pa.dtype == (torch.float32 if "scale" in name
+                            else getattr(torch, cfg.param_dtype))
