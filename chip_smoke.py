@@ -8,20 +8,25 @@ Phases, each of which fails the run on any error:
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``;
 2. kernels: each kernel is held against its plain PyTorch version on the
-   card (bf16 tolerance 3e-2, float32 2e-5) at the serving path's shapes and
-   at the JAX package's test shapes, and timed beside its plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   and its bound (bytes over HBM rate, operations over bf16 tensor rate);
-3. small model: a 2-layer qwen2-shaped model (head_dim 128) in float32
-   serves the same prompts on the card and on the CPU; logits and greedy
-   tokens must agree;
+   card at the serving paths' shapes and at the JAX package's test shapes
+   (attention: bf16 3e-2, float32 2e-5; mLSTM: h and the final state, bf16
+   3e-2 of max|h| and state rel 1e-3, float32 rel 1e-4), and timed beside
+   its plain version, one PyTorch call computing the same function where
+   there is one (``F.scaled_dot_product_attention``; none for the mLSTM: a
+   yardstick the port never calls) and its bound (bytes over HBM rate,
+   operations over bf16 tensor rate);
+3. small models: a 2-layer qwen2-shaped model (head_dim 128) and an 8-layer
+   xLSTM-shaped model (dqk 128, dv 256) in float32 serve the same prompts on
+   the card and on the CPU; logits and greedy tokens must agree;
 4. serving at full width: ``repro_torch.launch.serve`` serves 8 requests of
-   qwen2-7b (published widths, random bf16 weights from a seed) on cuda:0;
-   every launch counter is zeroed first and read after, and the plain
-   attention versions are made to raise meanwhile, so the run proves that
-   every attention call went through the kernels;
+   qwen2-7b, then of xlstm-1.3b (published widths, random bf16 weights from
+   a seed) on cuda:0; before each, every launch counter is zeroed, and the
+   plain attention and mLSTM versions are made to raise until it ends, so
+   each run proves that every attention or mLSTM prefill call went through
+   the kernels;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
-   the served model: kernel time by name and the device's idle share.
+   each served model: kernel time by name and the device's idle share; for
+   xlstm-1.3b also the wall time of one mLSTM and one sLSTM block.
 
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -30,6 +35,7 @@ repository checkout.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -46,9 +52,9 @@ PEAKS = (("H100 PCIe", (756e12, 2.0e12)),
          ("H100", (989e12, 3.35e12)),
          ("H200", (989e12, 4.8e12)))
 
-SERVE_ARGV = ["--device", "cuda", "--arch", "qwen2-7b", "--no-reduced",
-              "--requests", "8", "--prompt-len", "512", "--max-new", "32",
-              "--max-batch", "4", "--devices", "1"]
+SERVE_ARGV = ["--device", "cuda", "--no-reduced", "--requests", "8",
+              "--prompt-len", "512", "--max-new", "32", "--max-batch", "4",
+              "--devices", "1"]
 
 
 def emit(record: dict) -> None:
@@ -210,6 +216,74 @@ def measure_decode(torch, gen, dev, flops_peak, bw_peak):
     return kernel, plain, library, flops, nbytes, flops_peak, bw_peak
 
 
+def _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype):
+    """As the JAX kernel test draws them: k / sqrt(dqk), forget gates
+    log_sigmoid(N(0,1) + 2); the gates stay float32."""
+    q = torch.randn(B, S, H, dqk, generator=gen, device=dev).to(dtype)
+    k = (torch.randn(B, S, H, dqk, generator=gen, device=dev) / dqk ** 0.5).to(dtype)
+    v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+    il = torch.randn(B, S, H, generator=gen, device=dev)
+    fl = torch.nn.functional.logsigmoid(torch.randn(B, S, H, generator=gen, device=dev) + 2)
+    return q, k, v, il, fl
+
+
+def check_mlstm(torch, gen, dev):
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ref import chunk_size, mlstm_chunk_reference
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, S, H, dqk, dv, chunk, dtype); h tol x max|h|, state rel tol
+        (4, 512, 4, 512, 1024, 256, bf16),     # xlstm-1.3b prefill
+        (4, 512, 4, 512, 1024, 256, f32),
+        (1, 511, 4, 512, 1024, 256, bf16),     # chunk 73
+        (1, 511, 2, 128, 96, 256, f32),        # chunk 73, ragged dv tile
+        (1, 256, 2, 128, 256, 128, f32),       # tests/test_kernels.py
+        (2, 512, 4, 128, 128, 128, f32),
+        (1, 256, 2, 256, 512, 64, f32),
+        (1, 256, 2, 256, 512, 64, bf16),
+    ]
+    errs = []
+    for B, S, H, dqk, dv, chunk, dtype in cases:
+        h_tol, state_tol = (3e-2, 1e-3) if dtype == bf16 else (1e-4, 1e-4)
+        args = _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype)
+        h, state = mlstm_chunk(*args, chunk=chunk, return_state=True)
+        h_ref, state_ref = mlstm_chunk_reference(*args, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        err = max_err(torch, h, h_ref)
+        rel = err / h_ref.float().abs().max().item()
+        state_rel = [max_err(torch, a, b) / b.abs().max().clamp_min(1e-30).item()
+                     for a, b in zip(state, state_ref)]
+        emit({"phase": "check", "kernel": "mlstm_chunk", "shape": [B, S, H, dqk, dv],
+              "chunk": chunk_size(S, chunk), "dtype": str(dtype), "max_abs_err": err,
+              "h_rel_err": rel, "h_rel_tol": h_tol, "state_rel_err_C_n_m": state_rel,
+              "state_rel_tol": state_tol})
+        if not (rel < h_tol and all(r < state_tol for r in state_rel)):
+            raise AssertionError(f"mlstm_chunk disagrees: h {rel}, state {state_rel}")
+        errs.append(err)
+    return errs[0]
+
+
+def measure_mlstm(torch, gen, dev, flops_peak, bw_peak):
+    """xlstm-1.3b prefill shape, bf16, with the final state as the model asks
+    for it. Inputs are fresh projections in the model, so they are timed warm
+    in L2 (34 MB of q/k/v)."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_reference
+    B, S, H, dqk, dv, c = 4, 512, 4, 512, 1024, 256
+    inputs = [_mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, torch.bfloat16)]
+    kernel = time_ms(torch, lambda *a: mlstm_chunk(*a, return_state=True), inputs)
+    plain = time_ms(torch, lambda *a: mlstm_chunk_reference(*a, return_state=True),
+                    inputs)
+    pairs = c * (c + 1) // 2                       # causal (j, l) pairs per chunk
+    per_chunk = (2 * pairs * (dqk + dv + 1)        # q k^T, W v, sum W S
+                 + 4 * c * dqk * dv                # q C and the C update
+                 + 4 * c * dqk)                    # q . n and the n update
+    flops = B * H * (S // c) * per_chunk
+    nbytes = (2 * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out (bf16)
+              + 4 * 2 * B * S * H                  # the two gates (f32)
+              + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
+    return kernel, plain, None, flops, nbytes, flops_peak, bw_peak
+
+
 def kernel_row(name, source, replaces, err, measured, launches):
     kernel, plain, library, flops, nbytes, flops_peak, bw_peak = measured
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
@@ -220,28 +294,24 @@ def kernel_row(name, source, replaces, err, measured, launches):
             "library_ms": library}
 
 
-def check_small_model(torch, dev):
-    """2-layer qwen2-shaped model (head_dim 128, GQA 7), float32: card vs CPU."""
+def check_small_model(torch, dev, cfg, S: int):
+    """A small float32 model: prefill logits and greedy tokens, card vs CPU."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.runtime.serving_pool import ServingPool
-    cfg = get_config("qwen2-7b").with_(num_layers=2, d_model=256, d_ff=512,
-                                       vocab_size=1024, param_dtype="float32",
-                                       compute_dtype="float32")
     cpu_model = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    with torch.no_grad():      # non-zero biases and norm scales
+    with torch.no_grad():      # non-zero biases, norm scales, conv_b, out_scale
         g = torch.Generator().manual_seed(2)
         for name, p in cpu_model.named_parameters():
-            if name.endswith(("bias", "scale")):
-                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
-    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40),
+            if name.endswith(("bias", "scale", "conv_b")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3 + 0.1)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, S),
                                                dtype=np.int32)
     gpu_model = cpu_model.copy_to(dev)
     with torch.inference_mode():
         tokens = torch.from_numpy(prompt).long()
-        want, _ = M.prefill(cpu_model, tokens, max_len=48)
-        got, _ = M.prefill(gpu_model, tokens.to(dev), max_len=48)
+        want, _ = M.prefill(cpu_model, tokens, max_len=S + 8)
+        got, _ = M.prefill(gpu_model, tokens.to(dev), max_len=S + 8)
     err = max_err(torch, got.cpu(), want)
     toks = {}
     for d, model in (("cpu", cpu_model), ("cuda", gpu_model)):
@@ -249,40 +319,66 @@ def check_small_model(torch, dev):
         pool.scale_to([dev if d == "cuda" else "cpu"])
         toks[d] = pool.submit(prompt, 8)
     same = bool((toks["cpu"] == toks["cuda"]).all())
-    emit({"phase": "small_model", "prefill_logits_max_abs_err": err, "tol": 1e-3,
-          "greedy_tokens_identical": same, "shape": list(toks["cuda"].shape)})
+    emit({"phase": "small_model", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "prompt": [2, S], "prefill_logits_max_abs_err": err,
+          "tol": 1e-3, "greedy_tokens_identical": same, "shape": list(toks["cuda"].shape)})
     if not (err < 1e-3 and same and toks["cuda"].shape == (2, 8)):
-        raise AssertionError("port on the card disagrees with the CPU path")
+        raise AssertionError(f"{cfg.name}: port on the card disagrees with the CPU path")
 
 
-def serve_full_width(torch):
+def small_configs():
+    """qwen2-shaped (head_dim 128, GQA 7) and xLSTM-shaped (dqk 128, dv 256,
+    the 7:1 pattern) float32 models, small enough for the CPU."""
+    from repro_torch.configs import get_config
+    f32 = dict(param_dtype="float32", compute_dtype="float32", vocab_size=1024)
+    return [(get_config("qwen2-7b").with_(num_layers=2, d_model=256, d_ff=512, **f32), 40),
+            (get_config("xlstm-1.3b").with_(num_layers=8, d_model=256, num_heads=2,
+                                            **f32), 40)]
+
+
+def serve_full_width(torch, arch: str):
+    """Serve 8 requests of ``arch`` at its published widths. Every launch
+    counter is zeroed just before and read just after; the plain versions
+    raise meanwhile."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mlstm_chunk import ops as mops
     from repro_torch.launch import serve
 
-    def plain_forbidden(*args, **kwargs):
-        raise AssertionError("the plain attention version ran on the main path")
+    plains = {"flash_attention": (fops, "flash_attention_reference"),
+              "decode_attention": (dops, "decode_attention_reference"),
+              "mlstm_chunk": (mops, "mlstm_chunk_reference")}
+    wrappers = {"flash_attention": fops.flash_attention,
+                "decode_attention": dops.decode_attention,
+                "mlstm_chunk": mops.mlstm_chunk}
 
-    saved = fops.flash_attention_reference, dops.decode_attention_reference
-    fops.flash_attention_reference = dops.decode_attention_reference = plain_forbidden
+    def plain_forbidden(*args, **kwargs):
+        raise AssertionError("a plain kernel version ran on the main path")
+
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in plains.items()}
+    for mod, attr in plains.values():
+        setattr(mod, attr, plain_forbidden)
     torch.cuda.reset_peak_memory_stats()
-    fops.flash_attention.launches = 0
-    dops.decode_attention.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     try:
         t0 = time.perf_counter()
-        report = serve.run(SERVE_ARGV)
+        report = serve.run(SERVE_ARGV + ["--arch", arch])
         wall = time.perf_counter() - t0
     finally:
-        fops.flash_attention_reference, dops.decode_attention_reference = saved
-    launches = {"flash_attention": fops.flash_attention.launches,
-                "decode_attention": dops.decode_attention.launches}
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        for name, (mod, attr) in plains.items():
+            setattr(mod, attr, saved[name])
     cfg, rounds = report["cfg"], report["rounds"]
     done = report["completed"]
     ok_tokens = len(done) == 8 and all(
         r.done is not None and len(r.done) == 32 and (r.done >= 0).all()
         and (r.done < cfg.vocab_size).all() for r in done)
-    want = {"flash_attention": rounds * cfg.num_layers,
-            "decode_attention": rounds * cfg.num_layers * 31}
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    want = {"flash_attention": rounds * n_attn,
+            "decode_attention": rounds * n_attn * 31,
+            "mlstm_chunk": rounds * kinds.count("mlstm")}
     t = report["timings"]
     emit({"phase": "serve", "arch": cfg.name, "d_model": cfg.d_model,
           "layers": cfg.num_layers, "devices": report["devices"], "rounds": rounds,
@@ -349,8 +445,31 @@ def profile_serving(torch, pool):
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
         decode = _device_breakdown(torch, prof, decode_s, steps)
-    emit({"phase": "profile", "note": "profiler on: wall times include its "
-          "recording overhead", "prefill": prefill, "decode_step": decode})
+    emit({"phase": "profile", "arch": model.cfg.name, "note": "profiler on: wall "
+          "times include its recording overhead", "prefill": prefill,
+          "decode_step": decode})
+
+
+def time_xlstm_blocks(torch, pool):
+    """Host wall ms (after a synchronize) of one mLSTM and one sLSTM block of
+    the served model: prefill of [4, 512] and one decode step."""
+    model = pool.replicas[0].model
+    x = torch.randn(4, 512, model.cfg.d_model, device=model.device).to(model.compute_dtype)
+    out = {}
+    with torch.inference_mode():
+        for kind in ("mlstm", "slstm"):
+            block = next(b for b in model.layers if b.kind == kind)
+            block.prefill(x, 0)                                     # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = block.prefill(x, 0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            block.decode(x[:, -1:], cache, 512)
+            torch.cuda.synchronize()
+            out[kind] = {"prefill_ms": (t1 - t0) * 1e3,
+                         "decode_step_ms": (time.perf_counter() - t1) * 1e3}
+    emit({"phase": "xlstm_blocks", "shape": list(x.shape), **out})
 
 
 def main() -> int:
@@ -388,12 +507,23 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_err = check_flash(torch, gen, dev)
     decode_err = check_decode(torch, gen, dev)
+    mlstm_err = check_mlstm(torch, gen, dev)
     flash_t = measure_flash(torch, gen, dev, flops_peak, bw_peak)
     decode_t = measure_decode(torch, gen, dev, flops_peak, bw_peak)
-    check_small_model(torch, dev)
+    mlstm_t = measure_mlstm(torch, gen, dev, flops_peak, bw_peak)
+    for cfg, S in small_configs():
+        check_small_model(torch, dev, cfg, S)
 
-    launches, report = serve_full_width(torch)
-    profile_serving(torch, report["pool"])
+    launches = {}
+    for arch in ("qwen2-7b", "xlstm-1.3b"):
+        served, report = serve_full_width(torch, arch)
+        launches.update({k: v for k, v in served.items() if v})
+        profile_serving(torch, report["pool"])
+        if arch == "xlstm-1.3b":
+            time_xlstm_blocks(torch, report["pool"])
+        del report                              # free the weights before the next
+        gc.collect()
+        torch.cuda.empty_cache()
     kernels = [
         kernel_row("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:80",
@@ -401,6 +531,9 @@ def main() -> int:
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
                    decode_err, decode_t, launches["decode_attention"]),
+        kernel_row("mlstm_chunk", "src/repro_torch/kernels/mlstm_chunk/csrc/"
+                   "mlstm_chunk.cu", "src/repro/kernels/mlstm_chunk/kernel.py:89",
+                   mlstm_err, mlstm_t, launches["mlstm_chunk"]),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

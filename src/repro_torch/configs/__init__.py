@@ -1,6 +1,6 @@
 """Architecture registry of the port: the archs it can run today.
 
-The JAX package's other architectures (recurrent, xLSTM, MoE, multimodal)
+The JAX package's other architectures (RecurrentGemma, MoE, multimodal)
 wait for later slices of the port; see ``ROADMAP.md``.
 """
 from __future__ import annotations
@@ -8,8 +8,9 @@ from __future__ import annotations
 from .base import ModelConfig, MoEConfig
 from .deepseek_7b import CONFIG as deepseek_7b
 from .qwen2_7b import CONFIG as qwen2_7b
+from .xlstm_1_3b import CONFIG as xlstm_1_3b
 
-ARCHS = {c.name: c for c in (deepseek_7b, qwen2_7b)}
+ARCHS = {c.name: c for c in (deepseek_7b, qwen2_7b, xlstm_1_3b)}
 
 
 def get_config(name: str) -> ModelConfig:

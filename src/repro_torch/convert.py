@@ -46,7 +46,8 @@ def to_tensor(arr) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> CausalLM:
-    """The JAX ``init_params`` pytree (numpy leaves) as a port ``CausalLM``."""
+    """The JAX ``init_params`` pytree (numpy leaves) as a port ``CausalLM`` on
+    ``device`` (the card unless ``"cpu"``)."""
     P = len(cfg.block_pattern)
     reps, _ = _pattern_split(cfg)
     state: Dict[str, torch.Tensor] = {}

@@ -1,4 +1,4 @@
-"""Basic building blocks: dense, RMSNorm, RoPE, embedding, gated MLP.
+"""Basic building blocks: dense, norms, RoPE, embedding, gated MLP.
 
 Counterpart of ``repro.models.layers``. Dense kernels keep the JAX package's
 ``[in, out]`` orientation (``y = x @ kernel + bias``), so converted weights
@@ -56,6 +56,37 @@ class RMSNorm(nn.Module):
         var = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps) * (1.0 + self.scale)
         return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with ``scale`` and ``bias``, eps 1e-6, biased variance,
+    computed in float32 (``repro.models.layers.apply_norm``)."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.scale = _empty((dim,), torch.float32, device)
+        self.bias = _empty((dim,), torch.float32, device)
+        self.eps = eps
+
+    def reset_parameters(self) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+def make_norm(kind: str, dim: int, *, device=None) -> nn.Module:
+    """``cfg.norm``: ``rmsnorm`` or ``layernorm``."""
+    if kind == "rmsnorm":
+        return RMSNorm(dim, device=device)
+    if kind == "layernorm":
+        return LayerNorm(dim, device=device)
+    raise ValueError(kind)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Decoder-only causal LM of the port (counterpart of ``repro.models.model``).
 
-Only the dense ``attn``/``local`` blocks are ported. Layers are an
-``nn.ModuleList`` in depth order, where the JAX package scans over stacked
-pattern repeats; ``repro_torch.convert`` maps one layout onto the other.
-The model serves (prefill and decode), so parameters carry no gradient.
+Ported block kinds: dense ``attn``/``local`` and xLSTM ``mlstm``/``slstm``.
+Layers are an ``nn.ModuleList`` in depth order, where the JAX package scans
+over stacked pattern repeats; ``repro_torch.convert`` maps one layout onto
+the other. The model serves (prefill and decode), so parameters carry no
+gradient.
 
   prefill      full prompt -> logits of the last position, filled caches
   decode_step  one token against the caches, which it updates in place
@@ -16,14 +17,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, Cache, init_kv_cache
-from repro_torch.models.layers import MLP, Dense, Embedding, RMSNorm
+from repro_torch.models.layers import MLP, Dense, Embedding, make_norm
+from repro_torch.models.xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
+                                      init_slstm_cache)
 
-_NOT_PORTED = {
-    "rglru": "RecurrentGemma (rglru_scan kernel)",
-    "mlstm": "xLSTM (mlstm_chunk kernel)",
-    "slstm": "xLSTM (mlstm_chunk kernel)",
-}
+_NOT_PORTED = {"rglru": "RecurrentGemma (rglru_scan kernel)"}
+_PORTED = ("attn", "local", "mlstm", "slstm")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -32,7 +33,7 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}, "
                 "ROADMAP.md queue 1")
-        if kind not in ("attn", "local"):
+        if kind not in _PORTED:
             raise ValueError(kind)
     unported = {
         "moe": cfg.moe is not None,
@@ -40,7 +41,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         "num_codebooks": cfg.num_codebooks > 0,
         "input_mode=embeddings": cfg.input_mode != "tokens",
         "logit_softcap": bool(cfg.logit_softcap),
-        "layernorm": cfg.norm != "rmsnorm",
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -56,26 +56,36 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 class Block(nn.Module):
-    """Pre-norm attention block with a gated MLP (``apply_block``, dense path)."""
+    """Pre-norm block (``apply_block``): attention then a gated MLP for
+    ``attn``/``local``; for ``mlstm``/``slstm`` the mixer alone,
+    ``x + mixer(pre_norm(x))``, with no MLP."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
         super().__init__()
         self.kind = kind
-        self.window = cfg.window_size if kind == "local" else 0
-        self.pre_norm = RMSNorm(cfg.d_model, device=device)
-        self.mixer = Attention(cfg, window=self.window, theta=_theta(cfg, kind),
-                               dtype=dtype, device=device)
-        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype, device=device)
+        self.pre_norm = make_norm(cfg.norm, cfg.d_model, device=device)
+        if kind in ("attn", "local"):
+            window = cfg.window_size if kind == "local" else 0
+            self.mixer = Attention(cfg, window=window, theta=_theta(cfg, kind),
+                                   dtype=dtype, device=device)
+            self.mlp_norm = make_norm(cfg.norm, cfg.d_model, device=device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype, device=device)
+        else:
+            mixer = MLSTMBlock if kind == "mlstm" else SLSTMBlock
+            self.mixer = mixer(cfg, dtype=dtype, device=device)
+            self.mlp = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.pre_norm.reset_parameters()
         self.mixer.reset_parameters(generator)
-        self.mlp_norm.reset_parameters()
-        self.mlp.reset_parameters(generator)
+        if self.mlp is not None:
+            self.mlp_norm.reset_parameters()
+            self.mlp.reset_parameters(generator)
 
     def _finish(self, x, y):
         x = x + y
+        if self.mlp is None:
+            return x
         return x + self.mlp(self.mlp_norm(x))
 
     def prefill(self, x, max_len: int):
@@ -88,11 +98,13 @@ class Block(nn.Module):
 
 
 class CausalLM(nn.Module):
-    """Parameters are allocated uninitialised; see ``init_params``."""
+    """Parameters are allocated uninitialised, on ``device`` (the card unless
+    ``"cpu"``); see ``init_params``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         _check_supported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         dtype = getattr(torch, cfg.param_dtype)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -101,7 +113,7 @@ class CausalLM(nn.Module):
         self.layers = nn.ModuleList(
             Block(kind, cfg, dtype=dtype, device=device)
             for kind in cfg.layer_kinds())
-        self.final_norm = RMSNorm(cfg.d_model, device=device)
+        self.final_norm = make_norm(cfg.norm, cfg.d_model, device=device)
         self.head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
 
     @property
@@ -120,9 +132,11 @@ class CausalLM(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> CausalLM:
-    """Random weights drawn on ``device`` as ``repro.models.model.init_params``
-    draws them: dense kernels normal·1/√in, embedding normal·0.02 (both drawn
-    in float32, stored in ``param_dtype``), zero biases, zero norm scales."""
+    """Random weights drawn on ``device`` (the card unless ``"cpu"``) as
+    ``repro.models.model.init_params`` draws them: dense kernels normal·1/√in,
+    embedding normal·0.02 (both drawn in float32, stored in ``param_dtype``),
+    zero biases, RMSNorm scales zero, LayerNorm scales one; the xLSTM blocks'
+    own leaves as their ``reset_parameters`` say."""
     model = CausalLM(cfg, device=device)
     with torch.no_grad():
         model.embed.reset_parameters(generator)
@@ -135,11 +149,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None) -> List[Cache]:
-    """One empty KV cache per layer."""
-    return [init_kv_cache(cfg, batch, max_len,
-                          window=cfg.window_size if kind == "local" else 0,
-                          dtype=dtype, device=device)
-            for kind in cfg.layer_kinds()]
+    """One empty cache per layer, by its kind, on ``device`` (the card unless
+    ``"cpu"``)."""
+    device = resolve_device(device)
+
+    def one(kind: str) -> Cache:
+        if kind == "mlstm":
+            return init_mlstm_cache(cfg, batch, dtype=dtype, device=device)
+        if kind == "slstm":
+            return init_slstm_cache(cfg, batch, device=device)
+        return init_kv_cache(cfg, batch, max_len,
+                             window=cfg.window_size if kind == "local" else 0,
+                             dtype=dtype, device=device)
+
+    return [one(kind) for kind in cfg.layer_kinds()]
 
 
 def prefill(model: CausalLM, tokens: torch.Tensor, *,

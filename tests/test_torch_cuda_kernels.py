@@ -6,7 +6,8 @@ CUDA device. Run them on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
 Tolerances are those of the JAX package's kernel tests: float32 2e-5 (sums
-in another order), bf16 3e-2 (one rounding of the output to bf16).
+in another order), bf16 3e-2 (one rounding of the output to bf16); the mLSTM
+kernel's are stated at its test.
 """
 import pytest
 
@@ -76,3 +77,59 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     c = _randn(cuda, 1, 16, 2, 128, dtype=torch.float16)
     with pytest.raises(ValueError):
         decode_attention(q, c, c, torch.arange(16, device="cuda", dtype=torch.int32), 15)
+
+
+def _mlstm_inputs(gen, B, S, H, dqk, dv, dtype):
+    """As the JAX kernel test draws them: k / sqrt(dqk), forget gates
+    log_sigmoid(N(0,1) + 2); gates stay float32."""
+    q = _randn(gen, B, S, H, dqk, dtype=dtype)
+    k = (torch.randn(B, S, H, dqk, generator=gen, device="cuda") / dqk ** 0.5).to(dtype)
+    v = _randn(gen, B, S, H, dv, dtype=dtype)
+    il = torch.randn(B, S, H, generator=gen, device="cuda")
+    fl = torch.nn.functional.logsigmoid(
+        torch.randn(B, S, H, generator=gen, device="cuda") + 2.0)
+    return q, k, v, il, fl
+
+
+def _rel(out, ref):
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-9)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dqk,dv,chunk", [
+    (1, 256, 2, 128, 256, 128), (2, 512, 4, 128, 128, 128),     # tests/test_kernels.py
+    (1, 256, 2, 256, 512, 64),
+    (4, 512, 4, 512, 1024, 256),                                # xlstm-1.3b prefill
+    (1, 511, 2, 128, 96, 256),                                  # chunk 73, ragged dv
+])
+def test_mlstm_kernel_matches_plain(cuda, B, S, H, dqk, dv, chunk, dtype):
+    """h at rel 1e-4 (f32) or 3e-2 of max|h| (bf16, one rounding of h); the
+    float32 state (C, n, m) at rel 1e-4 (f32 inputs) or 1e-3 (bf16 inputs)."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    args = _mlstm_inputs(cuda, B, S, H, dqk, dv, dtype)
+    before = ops.mlstm_chunk.launches
+    h, state = ops.mlstm_chunk(*args, chunk=chunk, return_state=True)
+    h_ref, state_ref = ops.mlstm_chunk_reference(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.mlstm_chunk.launches == before + 1
+    assert h.dtype == dtype and h.shape == (B, S, H, dv)
+    assert torch.isfinite(h).all()
+    assert _rel(h, h_ref) < (1e-4 if dtype == torch.float32 else 3e-2)
+    for got, want in zip(state, state_ref):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    args = _mlstm_inputs(cuda, 1, 64, 2, 128, 64, torch.float32)
+    with pytest.raises(ValueError):
+        mlstm_chunk(*args, chunk=512)                           # chunk > 256
+    with pytest.raises(ValueError):
+        mlstm_chunk(*(a.half() for a in args[:3]), *args[3:])  # float16
+    with pytest.raises(ValueError):
+        mlstm_chunk(*args[:3], args[3].bfloat16(), args[4])     # bf16 gates
+    big = _mlstm_inputs(cuda, 1, 16, 1, 640, 64, torch.float32)
+    with pytest.raises(ValueError):
+        mlstm_chunk(*big)                                       # dqk > 512

@@ -36,6 +36,26 @@ def test_rmsnorm_matches_jax(seed):
            JL.apply_norm({"scale": jnp.asarray(scale)}, jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_layernorm_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(2, 5, 48)) * 3 + 1).astype(np.float32)
+    scale = rng.normal(size=(48,)).astype(np.float32)
+    bias = rng.normal(size=(48,)).astype(np.float32)
+    norm = TL.make_norm("layernorm", 48)
+    with torch.no_grad():
+        norm.scale.copy_(torch.from_numpy(scale))
+        norm.bias.copy_(torch.from_numpy(bias))
+    _close(norm(torch.from_numpy(x)),
+           JL.apply_norm({"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                         jnp.asarray(x)))
+    init = JL.init_norm("layernorm", 48)
+    norm.reset_parameters()
+    assert set(dict(norm.named_parameters())) == set(init)
+    for name, p in norm.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), np.asarray(init[name]))
+
+
 @pytest.mark.parametrize("theta,batched_pos", [(10_000.0, False),
                                                (1_000_000.0, True)])
 def test_rope_matches_jax(theta, batched_pos):

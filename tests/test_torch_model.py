@@ -1,11 +1,13 @@
-"""Port parity: the port's dense model vs repro.models.model on reduced configs.
+"""Port parity: the port's model vs repro.models.model on reduced configs
+(dense qwen2/deepseek and xLSTM).
 
-Weights come from the JAX ``init_params``, with every bias and norm scale
-overwritten by random non-zero values (they are zero at init and would hide a
-bug), and are carried across with ``params_from_jax``. Prefill logits, every
-layer's cache and four decode steps' logits are compared in float32 at atol
-1e-4 (a whole model: several layers of float32 products summed in another
-order), and the greedy tokens must be identical.
+Weights come from the JAX ``init_params``, with every bias, norm scale,
+``conv_b`` and ``out_scale`` overwritten by random non-zero values (they are
+zero or one at init and would hide a bug), and are carried across with
+``params_from_jax``. Prefill logits, every layer's cache and four decode
+steps' logits are compared in float32 at atol 1e-4 (a whole model: several
+layers of float32 products summed in another order), and the greedy tokens
+must be identical.
 """
 import dataclasses
 
@@ -26,24 +28,32 @@ torch.backends.cuda.matmul.allow_tf32 = False
 ATOL = 1e-4
 
 
+VARIANTS = {  # suffix -> config changes
+    "-local": dict(block_pattern=("local", "attn"), num_layers=3, window_size=8),
+    # two pattern repeats and a tail (mlstm, slstm): params_from_jax's tail path
+    "-tail": dict(block_pattern=("mlstm", "slstm", "mlstm"), num_layers=8),
+}
+
+
 def configs(arch: str):
-    """(JAX cfg, port cfg). ``-local`` adds a sliding-window layer and a tail."""
-    base = arch.removesuffix("-local")
+    """(JAX cfg, port cfg) of the reduced arch, with a ``VARIANTS`` suffix."""
+    suffix = next((v for v in VARIANTS if arch.endswith(v)), "")
+    base = arch.removesuffix(suffix)
     jcfg = JC.reduced_config(JC.ARCHS[base])
     tcfg = TC.reduced_config(TC.get_config(base))
-    if arch.endswith("-local"):
-        kw = dict(block_pattern=("local", "attn"), num_layers=3, window_size=8)
-        jcfg, tcfg = jcfg.with_(**kw), tcfg.with_(**kw)
+    if suffix:
+        jcfg, tcfg = jcfg.with_(**VARIANTS[suffix]), tcfg.with_(**VARIANTS[suffix])
     return jcfg, tcfg
 
 
 def jax_params(cfg, seed: int):
-    """JAX init_params with biases and norm scales made random and non-zero."""
+    """JAX init_params with biases, norm scales, conv_b and out_scale made
+    random and non-zero."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         leaf = np.array(leaf)
-        if path[-1].key in ("bias", "scale"):
+        if path[-1].key in ("bias", "scale", "conv_b", "out_scale"):
             leaf = (rng.normal(size=leaf.shape) * 0.3 + 0.1).astype(leaf.dtype)
         return leaf
 
@@ -51,7 +61,7 @@ def jax_params(cfg, seed: int):
     return jax.tree_util.tree_map_with_path(fill, params)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b"])
 def test_port_config_matches_jax_config(arch):
     jcfg, tcfg = configs(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -59,7 +69,8 @@ def test_port_config_matches_jax_config(arch):
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "qwen2-7b-local"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "qwen2-7b-local",
+                                  "xlstm-1.3b", "xlstm-1.3b-tail"])
 def test_prefill_cache_and_decode_match_jax(arch):
     jcfg, tcfg = configs(arch)
     params = jax_params(jcfg, seed=3)
@@ -106,12 +117,38 @@ def test_prefill_cache_and_decode_match_jax(arch):
 
 def test_unported_archs_and_blocks_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_config("xlstm-1.3b")
+        TC.get_config("recurrentgemma-2b")
     cfg = TC.reduced_config(TC.get_config("qwen2-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.CausalLM(cfg.with_(block_pattern=("rglru", "attn")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.CausalLM(cfg.with_(moe=TC.MoEConfig(4, 2, 32)))
+    if not torch.cuda.is_available():       # no device named: the card, or raise
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TM.init_params(cfg, torch.Generator().manual_seed(1))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TM.init_cache(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_jax(jax_params(configs("qwen2-7b")[0], seed=0), cfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-1.3b"])
+def test_init_params_draws_the_jax_distributions(arch):
+    """Leaf by leaf: constant leaves (zero biases and conv_b, norm scales,
+    out_scale) equal JAX's; random leaves have JAX's std within 15 % (the
+    generators differ; the smallest random leaf has 256 values)."""
+    jcfg, tcfg = configs(arch)
+    jax_init = jax.device_get(JM.init_params(jax.random.PRNGKey(0), jcfg))
+    want = params_from_jax(jax_init, tcfg, device="cpu").state_dict()
+    got = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu").state_dict()
+    assert got.keys() == want.keys()
+    for name, ref in want.items():
+        leaf = got[name]
+        assert leaf.dtype == ref.dtype and leaf.shape == ref.shape, name
+        if ref.numel() == 1 or ref.std() == 0:
+            assert torch.equal(leaf, ref), name
+        else:
+            assert abs(leaf.std().item() / ref.std().item() - 1) < 0.15, name
 
 
 def test_init_params_on_device_is_seeded():

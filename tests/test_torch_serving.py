@@ -18,7 +18,7 @@ from test_torch_model import configs, jax_params  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b"])
 def test_serving_pool_tokens_match_jax(arch):
     jcfg, tcfg = configs(arch)
     params = jax_params(jcfg, seed=7)
@@ -55,6 +55,15 @@ def test_batcher_round_through_port_pool_matches_jax():
         done.append([r.done for r in b.completed])
     for want, got in zip(*done):
         np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_serve_cli_serves_xlstm_on_cpu():
+    report = serve.run(["--device", "cpu", "--arch", "xlstm-1.3b", "--requests", "3",
+                        "--max-batch", "2", "--prompt-len", "5", "--max-new", "4"])
+    assert report["cfg"].block_pattern[-1] == "slstm" and report["rounds"] == 2
+    assert all(len(r.done) == 4 and (0 <= r.done).all()
+               and (r.done < report["cfg"].vocab_size).all()
+               for r in report["completed"])
 
 
 def test_serve_cli_on_cpu(capsys):
