@@ -9,21 +9,24 @@ Phases, each of which fails the run on any error:
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``;
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
-   (attention: bf16 3e-2, float32 2e-5; mLSTM: h and the final state, bf16
-   3e-2 of max|h| and state rel 1e-3, float32 rel 1e-4), and timed beside
-   its plain version, one PyTorch call computing the same function where
-   there is one (``F.scaled_dot_product_attention``; none for the mLSTM: a
+   (attention at head_dim 128 and 256, bf16 3e-2, float32 2e-5; mLSTM: h and
+   the final state, bf16 3e-2 of max|h| and state rel 1e-3, float32 rel
+   1e-4; RG-LRU scan: float32 2e-5, bf16 3e-2), and timed beside its plain
+   version, one PyTorch call computing the same function where there is one
+   (``F.scaled_dot_product_attention``; none for the mLSTM or the scan: a
    yardstick the port never calls) and its bound (bytes over HBM rate,
-   operations over bf16 tensor rate);
-3. small models: a 2-layer qwen2-shaped model (head_dim 128) and an 8-layer
-   xLSTM-shaped model (dqk 128, dv 256) in float32 serve the same prompts on
-   the card and on the CPU; logits and greedy tokens must agree;
+   operations over the peak rate of their type);
+3. small models: a 2-layer qwen2-shaped model (head_dim 128), an 8-layer
+   xLSTM-shaped model (dqk 128, dv 256) and a 5-layer RecurrentGemma-shaped
+   model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
+   serve the same prompts on the card and on the CPU; logits and greedy
+   tokens must agree;
 4. serving at full width: ``repro_torch.launch.serve`` serves 8 requests of
-   qwen2-7b, then of xlstm-1.3b (published widths, random bf16 weights from
-   a seed) on cuda:0; before each, every launch counter is zeroed, and the
-   plain attention and mLSTM versions are made to raise until it ends, so
-   each run proves that every attention or mLSTM prefill call went through
-   the kernels;
+   qwen2-7b, then of xlstm-1.3b, then of recurrentgemma-2b (published
+   widths, random bf16 weights from a seed) on cuda:0; before each, every
+   launch counter is zeroed, and the plain attention, mLSTM and scan
+   versions are made to raise until it ends, so each run proves that every
+   attention, mLSTM or RG-LRU prefill call went through the kernels;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
    each served model: kernel time by name and the device's idle share; for
    xlstm-1.3b also the wall time of one mLSTM and one sLSTM block.
@@ -45,12 +48,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# name fragment -> (dense bf16 tensor-core FLOP/s, HBM bytes/s), data sheets;
-# the first fragment found in the card's name applies.
-PEAKS = (("H100 PCIe", (756e12, 2.0e12)),
-         ("H100 NVL", (835e12, 3.9e12)),
-         ("H100", (989e12, 3.35e12)),
-         ("H200", (989e12, 4.8e12)))
+# name fragment -> (dense bf16 tensor-core FLOP/s, HBM bytes/s, float32
+# CUDA-core FLOP/s), data sheets; the first fragment found in the card's name
+# applies.
+PEAKS = (("H100 PCIe", (756e12, 2.0e12, 51e12)),
+         ("H100 NVL", (835e12, 3.9e12, 60e12)),
+         ("H100", (989e12, 3.35e12, 67e12)),
+         ("H200", (989e12, 4.8e12, 67e12)))
 
 SERVE_ARGV = ["--device", "cuda", "--no-reduced", "--requests", "8",
               "--prompt-len", "512", "--max-new", "32", "--max-batch", "4",
@@ -99,53 +103,62 @@ def max_err(torch, out, ref) -> float:
 def check_flash(torch, gen, dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
-    cases = [  # (B, S, H, K, window, causal, dtype, tol)
-        (4, 512, 28, 4, 0, True, torch.bfloat16, 3e-2),     # serving prefill
-        (2, 500, 28, 4, 0, True, torch.bfloat16, 3e-2),     # ragged S
-        (2, 256, 8, 2, 128, True, torch.bfloat16, 3e-2),
-        (2, 256, 4, 2, 0, True, torch.float32, 2e-5),       # tests/test_kernels.py
-        (1, 512, 4, 4, 0, True, torch.float32, 2e-5),
-        (2, 256, 8, 2, 128, True, torch.float32, 2e-5),
-        (1, 256, 2, 1, 64, True, torch.float32, 2e-5),      # MQA + window
-        (1, 500, 4, 2, 96, True, torch.float32, 2e-5),      # ragged + window
-        (1, 130, 4, 2, 0, False, torch.float32, 2e-5),      # not causal
+    cases = [  # (B, S, H, K, hd, window, causal, dtype, tol)
+        (4, 512, 28, 4, 128, 0, True, torch.bfloat16, 3e-2),     # qwen2-7b prefill
+        (2, 500, 28, 4, 128, 0, True, torch.bfloat16, 3e-2),     # ragged S
+        (2, 256, 8, 2, 128, 128, True, torch.bfloat16, 3e-2),
+        (2, 256, 4, 2, 128, 0, True, torch.float32, 2e-5),       # tests/test_kernels.py
+        (1, 512, 4, 4, 128, 0, True, torch.float32, 2e-5),
+        (2, 256, 8, 2, 128, 128, True, torch.float32, 2e-5),
+        (1, 256, 2, 1, 128, 64, True, torch.float32, 2e-5),      # MQA + window
+        (1, 500, 4, 2, 128, 96, True, torch.float32, 2e-5),      # ragged + window
+        (1, 130, 4, 2, 128, 0, False, torch.float32, 2e-5),      # not causal
+        (4, 512, 10, 1, 256, 2048, True, torch.bfloat16, 3e-2),  # recurrentgemma-2b
+        (2, 512, 10, 1, 256, 128, True, torch.bfloat16, 3e-2),   # window < S
+        (2, 512, 10, 1, 256, 128, True, torch.float32, 2e-5),
+        (1, 300, 10, 1, 256, 0, True, torch.float32, 2e-5),      # ragged S
     ]
-    errs = []
-    for B, S, H, K, win, causal, dtype, tol in cases:
-        q = torch.randn(B, S, H, 128, generator=gen, device=dev).to(dtype)
-        k = torch.randn(B, S, K, 128, generator=gen, device=dev).to(dtype)
-        v = torch.randn(B, S, K, 128, generator=gen, device=dev).to(dtype)
+    errs = {}
+    for B, S, H, K, hd, win, causal, dtype, tol in cases:
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=win)
         ref = flash_attention_reference(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
         err = max_err(torch, out, ref)
-        emit({"phase": "check", "kernel": "flash_attention", "shape": [B, S, H, K, 128],
+        emit({"phase": "check", "kernel": "flash_attention", "shape": [B, S, H, K, hd],
               "window": win, "causal": causal, "dtype": str(dtype), "max_abs_err": err,
               "tol": tol})
         if not err < tol:
             raise AssertionError(f"flash_attention disagrees: {err} >= {tol}")
-        errs.append(err)
-    return errs[0]
+        errs.setdefault(hd, err)              # the first case of each head dim
+    return errs
 
 
 def check_decode(torch, gen, dev):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-    cases = [  # (B, H, K, L, window, fill, dtype, tol)
-        (4, 28, 4, 544, 0, 544, torch.bfloat16, 3e-2),      # serving, last step
-        (4, 28, 4, 544, 0, 513, torch.bfloat16, 3e-2),      # serving, first step
-        (2, 8, 2, 1024, 0, 1024, torch.float32, 2e-5),      # tests/test_kernels.py
-        (2, 8, 4, 1024, 0, 700, torch.float32, 2e-5),       # partial fill
-        (1, 4, 1, 512, 256, 512, torch.float32, 2e-5),      # MQA ring window
-        (1, 2, 2, 512, 0, 512, torch.float32, 2e-5),
-        (2, 28, 4, 256, 256, None, torch.float32, 2e-5),    # wrapped ring
-        (1, 32, 32, 300, 0, 300, torch.float32, 2e-5),      # MHA, ragged L
+    cases = [  # (B, H, K, hd, L, window, fill, dtype, tol)
+        (4, 28, 4, 128, 544, 0, 544, torch.bfloat16, 3e-2),      # qwen2-7b, last step
+        (4, 28, 4, 128, 544, 0, 513, torch.bfloat16, 3e-2),      # qwen2-7b, first step
+        (2, 8, 2, 128, 1024, 0, 1024, torch.float32, 2e-5),      # tests/test_kernels.py
+        (2, 8, 4, 128, 1024, 0, 700, torch.float32, 2e-5),       # partial fill
+        (1, 4, 1, 128, 512, 256, 512, torch.float32, 2e-5),      # MQA ring window
+        (1, 2, 2, 128, 512, 0, 512, torch.float32, 2e-5),
+        (2, 28, 4, 128, 256, 256, None, torch.float32, 2e-5),    # wrapped ring
+        (1, 32, 32, 128, 300, 0, 300, torch.float32, 2e-5),      # MHA, ragged L
+        (4, 10, 1, 256, 544, 2048, 544, torch.bfloat16, 3e-2),   # recurrentgemma-2b
+        (4, 10, 1, 256, 544, 2048, 513, torch.bfloat16, 3e-2),
+        (2, 10, 1, 256, 544, 128, 544, torch.float32, 2e-5),     # window < filled
+        (2, 10, 1, 256, 256, 256, None, torch.float32, 2e-5),    # wrapped ring
+        (1, 16, 1, 256, 300, 0, 300, torch.float32, 2e-5),       # 2 blocks of 8 heads
     ]
-    errs = []
-    for B, H, K, L, win, fill, dtype, tol in cases:
-        q = torch.randn(B, H, 128, generator=gen, device=dev).to(dtype)
-        ck = torch.randn(B, L, K, 128, generator=gen, device=dev).to(dtype)
-        cv = torch.randn(B, L, K, 128, generator=gen, device=dev).to(dtype)
+    errs = {}
+    for B, H, K, hd, L, win, fill, dtype, tol in cases:
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+        ck = torch.randn(B, L, K, hd, generator=gen, device=dev).to(dtype)
+        cv = torch.randn(B, L, K, hd, generator=gen, device=dev).to(dtype)
         if fill is None:                    # 700 tokens through a 256-slot ring
             cur = 699
             sp = torch.arange(L, device=dev) + (cur + 1 - L)
@@ -158,49 +171,54 @@ def check_decode(torch, gen, dev):
         ref = decode_attention_reference(q, ck, cv, sp, cur, window=win)
         torch.cuda.synchronize()
         err = max_err(torch, out, ref)
-        emit({"phase": "check", "kernel": "decode_attention", "shape": [B, H, K, L, 128],
+        emit({"phase": "check", "kernel": "decode_attention", "shape": [B, H, K, L, hd],
               "window": win, "fill": fill, "dtype": str(dtype), "max_abs_err": err,
               "tol": tol})
         if not err < tol:
             raise AssertionError(f"decode_attention disagrees: {err} >= {tol}")
-        errs.append(err)
-    return errs[0]
+        errs.setdefault(hd, err)              # the first case of each head dim
+    return errs
 
 
-def measure_flash(torch, gen, dev, flops_peak, bw_peak):
-    """Serving prefill shape, bf16. Inputs are fresh projections in the model,
-    so they are timed warm in L2 (15 MB of q/k/v)."""
+def measure_flash(torch, gen, dev, peak, B, S, H, K, hd, window=0):
+    """A serving prefill shape, bf16, causal, with the model's window
+    (2048 >= S for recurrentgemma-2b). Inputs are fresh projections in the
+    model, so they are timed warm in L2 (15 MB of q/k/v for qwen2-7b, 13 MB
+    for recurrentgemma-2b)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
-    B, S, H, K, hd = 4, 512, 28, 4, 128
+    if 0 < window < S:
+        raise ValueError("the SDPA yardstick here is causal only: window >= S")
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     inputs = [(q, k, v)]
-    kernel = time_ms(torch, lambda a, b, c: flash_attention(a, b, c), inputs)
-    plain = time_ms(torch, lambda a, b, c: flash_attention_reference(a, b, c), inputs)
+    kernel = time_ms(torch, lambda a, b, c: flash_attention(a, b, c, window=window),
+                     inputs)
+    plain = time_ms(torch, lambda a, b, c: flash_attention_reference(
+        a, b, c, window=window), inputs)
     library = time_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
         a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
         is_causal=True, enable_gqa=True), inputs)
     pairs = S * (S + 1) // 2                       # causal (q, k) pairs
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-    return kernel, plain, library, flops, nbytes, flops_peak, bw_peak
+    return kernel, plain, library, flops, nbytes, peak[0], peak[1]
 
 
-def measure_decode(torch, gen, dev, flops_peak, bw_peak):
-    """Serving decode shape at its last step (544 valid slots), bf16. Sixteen
-    caches (72 MB) rotate so that reads come from HBM, as in the model,
-    where 28 layers' caches do not fit in L2."""
+def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
+    """A serving decode shape at its last step (all L slots valid), bf16.
+    ``n_caches`` caches rotate so that reads come from HBM, as in the model,
+    where the layers' caches and weights do not fit in L2 (16 x 4.5 MB for
+    qwen2-7b, 48 x 2.2 MB for recurrentgemma-2b)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-    B, H, K, L, hd = 4, 28, 4, 544, 128
     sp = torch.arange(L, device=dev, dtype=torch.int32)
     cur = L - 1
     inputs = []
-    for _ in range(16):
+    for _ in range(n_caches):
         inputs.append((torch.randn(B, H, hd, generator=gen, device=dev).bfloat16(),
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16(),
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16()))
@@ -213,7 +231,7 @@ def measure_decode(torch, gen, dev, flops_peak, bw_peak):
         enable_gqa=True), inputs)
     flops = 4 * B * H * hd * L
     nbytes = 2 * (2 * B * H * hd + 2 * B * L * K * hd) + 4 * L
-    return kernel, plain, library, flops, nbytes, flops_peak, bw_peak
+    return kernel, plain, library, flops, nbytes, peak[0], peak[1]
 
 
 def _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype):
@@ -262,7 +280,7 @@ def check_mlstm(torch, gen, dev):
     return errs[0]
 
 
-def measure_mlstm(torch, gen, dev, flops_peak, bw_peak):
+def measure_mlstm(torch, gen, dev, peak):
     """xlstm-1.3b prefill shape, bf16, with the final state as the model asks
     for it. Inputs are fresh projections in the model, so they are timed warm
     in L2 (34 MB of q/k/v)."""
@@ -281,17 +299,91 @@ def measure_mlstm(torch, gen, dev, flops_peak, bw_peak):
     nbytes = (2 * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out (bf16)
               + 4 * 2 * B * S * H                  # the two gates (f32)
               + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
-    return kernel, plain, None, flops, nbytes, flops_peak, bw_peak
+    return kernel, plain, None, flops, nbytes, peak[0], peak[1]
 
 
-def kernel_row(name, source, replaces, err, measured, launches):
-    kernel, plain, library, flops, nbytes, flops_peak, bw_peak = measured
+def _rglru_inputs(torch, gen, dev, B, S, W, dtype):
+    """As the JAX kernel test draws them: a = sigmoid(N) * 0.2 + 0.79,
+    b = N * 0.1, h0 = N."""
+    a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device=dev)) * 0.2 + 0.79
+    b = torch.randn(B, S, W, generator=gen, device=dev) * 0.1
+    h0 = torch.randn(B, W, generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def check_rglru(torch, gen, dev):
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, S, W, dtype, tol)
+        (4, 512, 2560, f32, 2e-5),           # recurrentgemma-2b prefill
+        (2, 512, 512, f32, 2e-5),            # tests/test_kernels.py
+        (1, 256, 1024, f32, 2e-5),
+        (3, 128, 512, f32, 2e-5),
+        (4, 512, 2560, bf16, 3e-2),
+        (1, 511, 1000, f32, 2e-5),           # ragged S and W
+    ]
+    errs = []
+    for B, S, W, dtype, tol in cases:
+        a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, dtype)
+        out = rglru_scan(a, b, h0)
+        ref = rglru_scan_reference(a, b, h0)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, ref)
+        emit({"phase": "check", "kernel": "rglru_scan", "shape": [B, S, W],
+              "dtype": str(dtype), "max_abs_err": err, "tol": tol})
+        if not (err < tol and out.dtype == dtype):
+            raise AssertionError(f"rglru_scan disagrees: {err} >= {tol}")
+        errs.append(err)
+    a = torch.full((1, 4, 256), 0.5, device=dev)          # tests/test_kernels.py h0
+    h = rglru_scan(a, torch.zeros_like(a), torch.ones(1, 256, device=dev))
+    torch.cuda.synchronize()
+    want = torch.tensor([0.5, 0.25, 0.125, 0.0625], device=dev)[None, :, None]
+    err = max_err(torch, h, want.expand_as(h))
+    emit({"phase": "check", "kernel": "rglru_scan", "case": "h0 = 1, a = 0.5, b = 0",
+          "max_abs_err": err, "tol": 1e-6})
+    if not err < 1e-6:
+        raise AssertionError(f"rglru_scan ignores h0: {err}")
+    return errs[0]
+
+
+def measure_rglru(torch, gen, dev, peak):
+    """recurrentgemma-2b prefill shape: a, b float32 [4, 512, 2560] from a zero
+    state, as the model calls it. 63 MB of a, b and h exceed L2."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
+    B, S, W = 4, 512, 2560
+    a, b, _ = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
+    inputs = [(a, b, torch.zeros(B, W, device=dev))]
+    kernel = time_ms(torch, rglru_scan, inputs)
+    plain = time_ms(torch, rglru_scan_reference, inputs, iters=5)
+    flops = 2 * B * S * W                          # one FMA a step (float32)
+    nbytes = 4 * (3 * B * S * W + B * W)           # a, b, h0 in, h out
+    return kernel, plain, None, flops, nbytes, peak[2], peak[1]
+
+
+def bound(measured):
+    """(bound ms, what bounds it) from a ``measure_*`` result."""
+    _, _, _, flops, nbytes, flops_peak, bw_peak = measured
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_row(name, source, replaces, err, measured, launches, **extra):
+    kernel, plain, library = measured[:3]
+    bound_ms, bound_by = bound(measured)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": kernel, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library}
+            "launches": sum(launches.values()), "max_abs_err": err, "ms": kernel,
+            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "launches_by_arch": launches, **extra}
+
+
+def shape_figures(shape, err, measured):
+    """A second shape's figures of a kernel row (recurrentgemma-2b's)."""
+    kernel, plain, library = measured[:3]
+    bound_ms, bound_by = bound(measured)
+    return {"shape": shape, "max_abs_err": err, "ms": kernel, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
 
 
 def check_small_model(torch, dev, cfg, S: int):
@@ -327,13 +419,18 @@ def check_small_model(torch, dev, cfg, S: int):
 
 
 def small_configs():
-    """qwen2-shaped (head_dim 128, GQA 7) and xLSTM-shaped (dqk 128, dv 256,
-    the 7:1 pattern) float32 models, small enough for the CPU."""
+    """qwen2-shaped (head_dim 128, GQA 7), xLSTM-shaped (dqk 128, dv 256, the
+    7:1 pattern) and RecurrentGemma-shaped (head_dim 256, 10 heads over 1 kv
+    head, window 16 < S, one pattern repeat and a 2-layer rglru tail, tied
+    embeddings, softcap) float32 models, small enough for the CPU."""
     from repro_torch.configs import get_config
     f32 = dict(param_dtype="float32", compute_dtype="float32", vocab_size=1024)
     return [(get_config("qwen2-7b").with_(num_layers=2, d_model=256, d_ff=512, **f32), 40),
             (get_config("xlstm-1.3b").with_(num_layers=8, d_model=256, num_heads=2,
-                                            **f32), 40)]
+                                            **f32), 40),
+            (get_config("recurrentgemma-2b").with_(num_layers=5, d_model=256, d_ff=512,
+                                                   rnn_width=256, window_size=16,
+                                                   **f32), 40)]
 
 
 def serve_full_width(torch, arch: str):
@@ -343,14 +440,17 @@ def serve_full_width(torch, arch: str):
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mlstm_chunk import ops as mops
+    from repro_torch.kernels.rglru_scan import ops as rops
     from repro_torch.launch import serve
 
     plains = {"flash_attention": (fops, "flash_attention_reference"),
               "decode_attention": (dops, "decode_attention_reference"),
-              "mlstm_chunk": (mops, "mlstm_chunk_reference")}
+              "mlstm_chunk": (mops, "mlstm_chunk_reference"),
+              "rglru_scan": (rops, "rglru_scan_reference")}
     wrappers = {"flash_attention": fops.flash_attention,
                 "decode_attention": dops.decode_attention,
-                "mlstm_chunk": mops.mlstm_chunk}
+                "mlstm_chunk": mops.mlstm_chunk,
+                "rglru_scan": rops.rglru_scan}
 
     def plain_forbidden(*args, **kwargs):
         raise AssertionError("a plain kernel version ran on the main path")
@@ -378,7 +478,8 @@ def serve_full_width(torch, arch: str):
     n_attn = sum(k in ("attn", "local") for k in kinds)
     want = {"flash_attention": rounds * n_attn,
             "decode_attention": rounds * n_attn * 31,
-            "mlstm_chunk": rounds * kinds.count("mlstm")}
+            "mlstm_chunk": rounds * kinds.count("mlstm"),
+            "rglru_scan": rounds * kinds.count("rglru")}
     t = report["timings"]
     emit({"phase": "serve", "arch": cfg.name, "d_model": cfg.d_model,
           "layers": cfg.num_layers, "devices": report["devices"], "rounds": rounds,
@@ -492,7 +593,7 @@ def main() -> int:
 
     card = card_line()
     name = card.split(",")[0].strip()
-    flops_peak, bw_peak = peaks(name)
+    peak = peaks(name)
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_count": torch.cuda.device_count()})
 
@@ -508,16 +609,22 @@ def main() -> int:
     flash_err = check_flash(torch, gen, dev)
     decode_err = check_decode(torch, gen, dev)
     mlstm_err = check_mlstm(torch, gen, dev)
-    flash_t = measure_flash(torch, gen, dev, flops_peak, bw_peak)
-    decode_t = measure_decode(torch, gen, dev, flops_peak, bw_peak)
-    mlstm_t = measure_mlstm(torch, gen, dev, flops_peak, bw_peak)
+    rglru_err = check_rglru(torch, gen, dev)
+    flash_t = measure_flash(torch, gen, dev, peak, 4, 512, 28, 4, 128)
+    flash_rg_t = measure_flash(torch, gen, dev, peak, 4, 512, 10, 1, 256, window=2048)
+    decode_t = measure_decode(torch, gen, dev, peak, 4, 28, 4, 544, 128, n_caches=16)
+    decode_rg_t = measure_decode(torch, gen, dev, peak, 4, 10, 1, 544, 256, n_caches=48)
+    mlstm_t = measure_mlstm(torch, gen, dev, peak)
+    rglru_t = measure_rglru(torch, gen, dev, peak)
     for cfg, S in small_configs():
         check_small_model(torch, dev, cfg, S)
 
-    launches = {}
-    for arch in ("qwen2-7b", "xlstm-1.3b"):
+    launches = {}                               # kernel -> {arch: launches}
+    for arch in ("qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b"):
         served, report = serve_full_width(torch, arch)
-        launches.update({k: v for k, v in served.items() if v})
+        for kernel, n in served.items():
+            if n:
+                launches.setdefault(kernel, {})[arch] = n
         profile_serving(torch, report["pool"])
         if arch == "xlstm-1.3b":
             time_xlstm_blocks(torch, report["pool"])
@@ -527,13 +634,20 @@ def main() -> int:
     kernels = [
         kernel_row("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:80",
-                   flash_err, flash_t, launches["flash_attention"]),
+                   flash_err[128], flash_t, launches["flash_attention"],
+                   head_dim_256=shape_figures([4, 512, 10, 1, 256], flash_err[256],
+                                              flash_rg_t)),
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
-                   decode_err, decode_t, launches["decode_attention"]),
+                   decode_err[128], decode_t, launches["decode_attention"],
+                   head_dim_256=shape_figures([4, 10, 1, 544, 256], decode_err[256],
+                                              decode_rg_t)),
         kernel_row("mlstm_chunk", "src/repro_torch/kernels/mlstm_chunk/csrc/"
                    "mlstm_chunk.cu", "src/repro/kernels/mlstm_chunk/kernel.py:89",
                    mlstm_err, mlstm_t, launches["mlstm_chunk"]),
+        kernel_row("rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/"
+                   "rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46",
+                   rglru_err, rglru_t, launches["rglru_scan"]),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

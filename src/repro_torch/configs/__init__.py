@@ -1,16 +1,18 @@
 """Architecture registry of the port: the archs it can run today.
 
-The JAX package's other architectures (RecurrentGemma, MoE, multimodal)
-wait for later slices of the port; see ``ROADMAP.md``.
+Dense (qwen2-7b, deepseek-7b), xLSTM (xlstm-1.3b) and RecurrentGemma
+(recurrentgemma-2b). The JAX package's other architectures (MoE, gemma3,
+multimodal) wait for later slices of the port; see ``ROADMAP.md``.
 """
 from __future__ import annotations
 
 from .base import ModelConfig, MoEConfig
 from .deepseek_7b import CONFIG as deepseek_7b
 from .qwen2_7b import CONFIG as qwen2_7b
+from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from .xlstm_1_3b import CONFIG as xlstm_1_3b
 
-ARCHS = {c.name: c for c in (deepseek_7b, qwen2_7b, xlstm_1_3b)}
+ARCHS = {c.name: c for c in (deepseek_7b, qwen2_7b, recurrentgemma_2b, xlstm_1_3b)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -70,6 +70,10 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def lru_width(self) -> int:
+        return self.rnn_width or self.d_model
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer block kinds, pattern repeated/truncated to num_layers."""
         p = self.block_pattern

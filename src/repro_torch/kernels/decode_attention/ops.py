@@ -4,7 +4,8 @@
 ``repro.kernels.decode_attention.ops`` does: q ``[B, H, hd]``, cache k/v
 ``[B, L, K, hd]``, ``slot_pos [L]`` int32 (-1 = empty) and ``cur_pos``. A CPU
 tensor goes to the plain version (``ref.py``); a CUDA tensor launches
-``csrc/decode_attention.cu``, which reads the cache in place, or raises.
+``csrc/decode_attention.cu``, which reads the cache in place, or raises. The
+kernel takes head_dim 128 or 256 and a group ``H // K`` of at most 16.
 ``decode_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 128
+HEAD_DIMS = (128, 256)
 MAX_GROUP = 16
 
 
@@ -69,8 +70,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     L, K = cache_k.shape[1], cache_k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"decode_attention kernel takes float32/bfloat16, got {q.dtype}")
-    if hd != HEAD_DIM:
-        raise ValueError(f"decode_attention kernel takes head_dim {HEAD_DIM}, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes head_dim {HEAD_DIMS}, got {hd}")
     if H // K > MAX_GROUP:
         raise ValueError(f"group size {H // K} exceeds {MAX_GROUP}")
     if slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous():

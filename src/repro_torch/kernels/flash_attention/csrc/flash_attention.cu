@@ -9,7 +9,10 @@
 // Design. One block per (b*h, 32-row query tile), 128 threads, four threads
 // per query row. The Pallas grid's sequential kv axis (m/l/acc carried in
 // VMEM scratch) becomes a loop over 32-key tiles inside the block, with m, l
-// and the row's 128-wide accumulator in registers (32 floats per thread).
+// and the row's hd-wide accumulator in registers (hd/4 floats per thread).
+// The kernel is a template on the head dim, instantiated at 128 (qwen2-7b)
+// and 256 (recurrentgemma-2b: 64 accumulator floats a thread, ~103 KB of
+// shared tiles, two blocks an SM).
 // Only the kv tiles the query tile can see are visited: tiles above the
 // diagonal or wholly outside the window are skipped (the Pallas grid visits
 // and masks them). q/k/v are read through strides in the model layout
@@ -19,7 +22,8 @@
 // Bound on H100. At the serving prefill shape (B=4, S=512, H=28, hd=128, bf16)
 // the causal work is ~7.5 GFLOP against ~34 MB of q/k/v/out: ~8 us at the
 // bf16 tensor-core rate and ~10 us at the HBM rate, so the shape sits near
-// the ridge. This first version does its products with float32 FMAs on CUDA
+// the ridge; at recurrentgemma-2b's (H=10, K=1, hd=256) it is ~5.4 GFLOP
+// against ~23 MB, ~5.4 us and ~6.9 us. This first version does its products with float32 FMAs on CUDA
 // cores from padded shared-memory tiles (conflict-free reads), so it is
 // limited by shared-memory bandwidth and the FP32 rate, far above that
 // bound; moving QK^T and PV onto wgmma with TMA-fed tiles is the next step.
@@ -30,14 +34,14 @@
 
 namespace {
 
-constexpr int HD = 128;          // head dim (the only one the kernel takes)
 constexpr int BQ = 32;           // query rows per block
 constexpr int BK = 32;           // keys per kv tile
 constexpr int THREADS = 128;     // 4 threads per query row
 constexpr int COLS = BK / 4;     // score columns per thread
-constexpr int DPT = HD / 4;      // accumulator columns per thread
 constexpr float NEG_INF = -1e30f;
-constexpr int SMEM_FLOATS = BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1);
+
+template <int HD>                // head dim: 128 or 256
+constexpr int smem_floats() { return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1); }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -47,7 +51,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -57,6 +61,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
                  int causal, int window, float scale) {
+  constexpr int DPT = HD / 4;          // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BQ][HD+1]  (padded: no bank conflicts)
   float* Ks = Qs + BQ * (HD + 1);      // [BK][HD+1]
@@ -162,18 +167,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int K,
                    const int64_t* qs, const int64_t* ks, const int64_t* vs,
                    const int64_t* os, int causal, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H, H / K,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
@@ -181,10 +186,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o,
+                              int B, int S, int H, int K, int hd, const int64_t* qs,
+                              const int64_t* ks, const int64_t* vs, const int64_t* os,
+                              int causal, int window, float scale, cudaStream_t st) {
+  if (hd == 128)
+    return launch<T, 128>(q, k, v, o, B, S, H, K, qs, ks, vs, os, causal, window, scale, st);
+  if (hd == 256)
+    return launch<T, 256>(q, k, v, o, B, S, H, K, qs, ks, vs, os, causal, window, scale, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, ordered
-// (batch, seq, head); the head dim must be contiguous. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; hd: 128 or 256. Strides are in elements,
+// ordered (batch, seq, head); the head dim must be contiguous. Returns a cudaError_t.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int B, int S, int H,
                                    int K, int hd, const int64_t* q_strides,
@@ -192,15 +209,16 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const int64_t* v_strides,
                                    const int64_t* o_strides, int causal,
                                    int window, float scale, void* stream) {
-  if (hd != HD || K <= 0 || H % K != 0 || B * H > 65535 || S <= 0)
+  if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, B, S, H, K, q_strides, k_strides,
-                              v_strides, o_strides, causal, window, scale, st);
+    return (int)dispatch_head_dim<float>(q, k, v, o, B, S, H, K, hd, q_strides, k_strides,
+                                         v_strides, o_strides, causal, window, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, B, S, H, K, q_strides, k_strides,
-                                      v_strides, o_strides, causal, window, scale, st);
+    return (int)dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, S, H, K, hd, q_strides,
+                                                 k_strides, v_strides, o_strides, causal,
+                                                 window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

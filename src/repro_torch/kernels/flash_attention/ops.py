@@ -2,8 +2,9 @@
 
 ``flash_attention`` takes the model layout ``[B, S, H, hd]`` / ``[B, S, K, hd]``
 as ``repro.kernels.flash_attention.ops`` does. A CPU tensor goes to the plain
-version (``ref.py``); a CUDA tensor launches ``csrc/flash_attention.cu`` or
-raises. ``flash_attention.launches`` counts kernel launches.
+version (``ref.py``); a CUDA tensor launches ``csrc/flash_attention.cu``
+(head_dim 128 or 256) or raises. ``flash_attention.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 128
+HEAD_DIMS = (128, 256)
 
 
 @functools.cache
@@ -58,8 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
-    if hd != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIM}, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
     if any(t.stride(3) != 1 for t in (q, k, v)):

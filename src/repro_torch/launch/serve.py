@@ -7,6 +7,8 @@ request trace, with the paper's autoscaler (counterpart of
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+        --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
 
 Runs on the card unless ``--device cpu``; ``--devices N`` caps the number of
 cards the pool may use (0 = all). Weights are random, drawn on the device

@@ -1,4 +1,5 @@
-"""Basic building blocks: dense, norms, RoPE, embedding, gated MLP.
+"""Basic building blocks: dense, norms, RoPE, embedding (and the tied
+unembedding), gated MLP, logit softcap.
 
 Counterpart of ``repro.models.layers``. Dense kernels keep the JAX package's
 ``[in, out]`` orientation (``y = x @ kernel + bias``), so converted weights
@@ -148,3 +149,14 @@ class Embedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
         return self.table[tokens].to(compute_dtype)
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits against the table (tied head): ``x @ table.T`` in x's dtype."""
+        return x @ self.table.to(x.dtype).T
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``tanh(x / cap) * cap``; no cap when ``cap`` is 0."""
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap

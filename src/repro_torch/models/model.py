@@ -1,16 +1,18 @@
 """Decoder-only causal LM of the port (counterpart of ``repro.models.model``).
 
-Ported block kinds: dense ``attn``/``local`` and xLSTM ``mlstm``/``slstm``.
-Layers are an ``nn.ModuleList`` in depth order, where the JAX package scans
-over stacked pattern repeats; ``repro_torch.convert`` maps one layout onto
-the other. The model serves (prefill and decode), so parameters carry no
-gradient.
+Ported block kinds: dense ``attn``/``local``, RecurrentGemma ``rglru`` and
+xLSTM ``mlstm``/``slstm``; also tied embeddings (the table as the head, the
+input scaled by √d) and the logit softcap. Layers are an ``nn.ModuleList``
+in depth order, where the JAX package scans over stacked pattern repeats;
+``repro_torch.convert`` maps one layout onto the other. The model serves
+(prefill and decode), so parameters carry no gradient.
 
   prefill      full prompt -> logits of the last position, filled caches
   decode_step  one token against the caches, which it updates in place
 """
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -19,28 +21,23 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, Cache, init_kv_cache
-from repro_torch.models.layers import MLP, Dense, Embedding, make_norm
+from repro_torch.models.layers import MLP, Dense, Embedding, make_norm, softcap
+from repro_torch.models.rglru import RGLRUBlock, init_rglru_cache
 from repro_torch.models.xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
                                       init_slstm_cache)
 
-_NOT_PORTED = {"rglru": "RecurrentGemma (rglru_scan kernel)"}
-_PORTED = ("attn", "local", "mlstm", "slstm")
+_PORTED = ("attn", "local", "rglru", "mlstm", "slstm")
+_WITH_MLP = ("attn", "local", "rglru")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.layer_kinds():
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}, "
-                "ROADMAP.md queue 1")
         if kind not in _PORTED:
             raise ValueError(kind)
     unported = {
         "moe": cfg.moe is not None,
-        "tie_embeddings": cfg.tie_embeddings,
         "num_codebooks": cfg.num_codebooks > 0,
         "input_mode=embeddings": cfg.input_mode != "tokens",
-        "logit_softcap": bool(cfg.logit_softcap),
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -56,9 +53,9 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 class Block(nn.Module):
-    """Pre-norm block (``apply_block``): attention then a gated MLP for
-    ``attn``/``local``; for ``mlstm``/``slstm`` the mixer alone,
-    ``x + mixer(pre_norm(x))``, with no MLP."""
+    """Pre-norm block (``apply_block``): the mixer (attention or the RG-LRU
+    branch) then a gated MLP for ``attn``/``local``/``rglru``; for
+    ``mlstm``/``slstm`` the mixer alone, ``x + mixer(pre_norm(x))``."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -68,12 +65,13 @@ class Block(nn.Module):
             window = cfg.window_size if kind == "local" else 0
             self.mixer = Attention(cfg, window=window, theta=_theta(cfg, kind),
                                    dtype=dtype, device=device)
+        else:
+            mixer = {"rglru": RGLRUBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}[kind]
+            self.mixer = mixer(cfg, dtype=dtype, device=device)
+        self.mlp = None
+        if kind in _WITH_MLP:
             self.mlp_norm = make_norm(cfg.norm, cfg.d_model, device=device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype, device=device)
-        else:
-            mixer = MLSTMBlock if kind == "mlstm" else SLSTMBlock
-            self.mixer = mixer(cfg, dtype=dtype, device=device)
-            self.mlp = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.pre_norm.reset_parameters()
@@ -99,7 +97,8 @@ class Block(nn.Module):
 
 class CausalLM(nn.Module):
     """Parameters are allocated uninitialised, on ``device`` (the card unless
-    ``"cpu"``); see ``init_params``."""
+    ``"cpu"``); see ``init_params``. With ``tie_embeddings`` there is no
+    ``head``: the logits are ``x @ embed.table.T``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -114,7 +113,12 @@ class CausalLM(nn.Module):
             Block(kind, cfg, dtype=dtype, device=device)
             for kind in cfg.layer_kinds())
         self.final_norm = make_norm(cfg.norm, cfg.d_model, device=device)
-        self.head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
+        self.head = None if cfg.tie_embeddings else Dense(
+            cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
+        # the input scale √d, rounded to the compute dtype first (50.5 in bf16
+        # for d 2560), as JAX multiplies by a compute-dtype scalar
+        self.embed_scale = torch.tensor(math.sqrt(cfg.d_model),
+                                        dtype=self.compute_dtype).item()
 
     @property
     def device(self) -> torch.device:
@@ -126,8 +130,14 @@ class CausalLM(nn.Module):
         other.load_state_dict(self.state_dict())
         return other
 
+    def _embed_in(self, tokens):
+        x = self.embed(tokens, self.compute_dtype)
+        return x * self.embed_scale if self.cfg.tie_embeddings else x
+
     def _head_out(self, x):
-        return self.head(self.final_norm(x)).float()
+        x = self.final_norm(x)
+        logits = self.embed.unembed(x) if self.head is None else self.head(x)
+        return softcap(logits.float(), self.cfg.logit_softcap)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -141,7 +151,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     with torch.no_grad():
         model.embed.reset_parameters(generator)
         model.final_norm.reset_parameters()
-        model.head.reset_parameters(generator)
+        if model.head is not None:
+            model.head.reset_parameters(generator)
         for block in model.layers:
             block.reset_parameters(generator)
     return model
@@ -158,6 +169,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return init_mlstm_cache(cfg, batch, dtype=dtype, device=device)
         if kind == "slstm":
             return init_slstm_cache(cfg, batch, device=device)
+        if kind == "rglru":
+            return init_rglru_cache(cfg, batch, dtype=dtype, device=device)
         return init_kv_cache(cfg, batch, max_len,
                              window=cfg.window_size if kind == "local" else 0,
                              dtype=dtype, device=device)
@@ -168,7 +181,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def prefill(model: CausalLM, tokens: torch.Tensor, *,
             max_len: int = 0) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens [B, S] -> (float32 logits of the last position [B, V], caches)."""
-    x = model.embed(tokens, model.compute_dtype)
+    x = model._embed_in(tokens)
     caches = []
     for block in model.layers:
         x, cache = block.prefill(x, max_len)
@@ -180,7 +193,7 @@ def decode_step(model: CausalLM, caches: List[Cache], tokens: torch.Tensor,
                 cur_pos: int) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens [B, 1] at position ``cur_pos`` (uniform over the batch) ->
     (float32 logits [B, V], caches). The caches are updated in place."""
-    x = model.embed(tokens, model.compute_dtype)
+    x = model._embed_in(tokens)
     for block, cache in zip(model.layers, caches):
         x, _ = block.decode(x, cache, cur_pos)
     return model._head_out(x)[:, 0], caches

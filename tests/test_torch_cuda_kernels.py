@@ -67,6 +67,102 @@ def test_decode_kernel_matches_plain(cuda, B, H, K, L, win, fill, dtype):
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,win", [(4, 512, 0), (2, 300, 0), (2, 512, 128),
+                                     (1, 130, 64)])
+def test_flash_kernel_head_dim_256_group_10_matches_plain(cuda, B, S, win, dtype):
+    """recurrentgemma-2b's heads: 10 query heads over 1 kv head, head_dim 256."""
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn(cuda, B, S, 10, 256, dtype=dtype)
+    k = _randn(cuda, B, S, 1, 256, dtype=dtype)
+    v = _randn(cuda, B, S, 1, 256, dtype=dtype)
+    out = ops.flash_attention(q, k, v, window=win)
+    ref = ops.flash_attention_reference(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,L,win,fill", [
+    (4, 10, 1, 544, 0, 544), (4, 10, 1, 544, 0, 513),   # recurrentgemma-2b decode
+    (2, 10, 1, 320, 128, 300),                          # window < filled slots
+    (1, 16, 1, 256, 0, 200), (2, 6, 2, 100, 0, 100),    # 2 x 8 heads; 3 heads
+    (1, 4, 4, 64, 0, 64),
+])
+def test_decode_kernel_head_dim_256_matches_plain(cuda, B, H, K, L, win, fill, dtype):
+    from repro_torch.kernels.decode_attention import ops
+    q = _randn(cuda, B, H, 256, dtype=dtype)
+    ck = _randn(cuda, B, L, K, 256, dtype=dtype)
+    cv = _randn(cuda, B, L, K, 256, dtype=dtype)
+    ar = torch.arange(L, device="cuda", dtype=torch.int32)
+    sp = torch.where(ar < fill, ar, torch.full_like(ar, -1))
+    out = ops.decode_attention(q, ck, cv, sp, fill - 1, window=win)
+    ref = ops.decode_attention_reference(q, ck, cv, sp, fill - 1, window=win)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def _rglru_inputs(gen, B, S, W, dtype):
+    """As the JAX kernel test draws them: a = sigmoid(N) * 0.2 + 0.79,
+    b = N * 0.1, h0 = N."""
+    a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device="cuda")) * 0.2 + 0.79
+    b = torch.randn(B, S, W, generator=gen, device="cuda") * 0.1
+    h0 = torch.randn(B, W, generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype), h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [
+    (2, 512, 512), (1, 256, 1024), (3, 128, 512),       # tests/test_kernels.py
+    (4, 512, 2560),                                      # recurrentgemma-2b prefill
+    (1, 511, 1000), (2, 7, 33),                          # ragged S and W
+])
+def test_rglru_kernel_matches_plain(cuda, B, S, W, dtype):
+    """float32 2e-5 (an FMA where the plain loop rounds twice; the plain
+    loop is held to the JAX oracle at 2e-4 on the CPU); bf16 3e-2 (one
+    rounding of h to bf16)."""
+    from repro_torch.kernels.rglru_scan import ops
+    a, b, h0 = _rglru_inputs(cuda, B, S, W, dtype)
+    before = ops.rglru_scan.launches
+    h = ops.rglru_scan(a, b, h0)
+    ref = ops.rglru_scan_reference(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    assert h.dtype == dtype and h.shape == (B, S, W) and torch.isfinite(h).all()
+    assert (h.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def test_rglru_kernel_respects_initial_state_and_strides(cuda):
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_reference
+    a = torch.full((1, 4, 256), 0.5, device="cuda")
+    h = rglru_scan(a, torch.zeros_like(a), torch.ones(1, 256, device="cuda"))
+    torch.cuda.synchronize()
+    assert (h[:, 0] - 0.5).abs().max().item() < 1e-6
+    assert (h[:, 3] - 0.5 ** 4).abs().max().item() < 1e-6
+    # a [S, B, W] layout viewed as [B, S, W]: batch and seq strides swapped
+    a, b, h0 = _rglru_inputs(cuda, 3, 40, 96, torch.float32)
+    a_t = a.transpose(0, 1).contiguous().transpose(0, 1)
+    out = rglru_scan(a_t, b, h0)
+    torch.cuda.synchronize()
+    assert (out - rglru_scan_reference(a, b, h0)).abs().max().item() < 2e-5
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    a, b, h0 = _rglru_inputs(cuda, 1, 16, 64, torch.float32)
+    with pytest.raises(ValueError):
+        rglru_scan(a.half(), b.half(), h0)                   # float16
+    with pytest.raises(ValueError):
+        rglru_scan(a, b.bfloat16(), h0)                      # mixed dtypes
+    with pytest.raises(ValueError):
+        rglru_scan(a.transpose(1, 2), b.transpose(1, 2), h0[:, :16])  # strided W
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    q = _randn(cuda, 1, 20, 256, dtype=torch.float32)        # group 20 > 16
+    c = _randn(cuda, 1, 16, 1, 256, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        decode_attention(q, c, c, torch.arange(16, device="cuda", dtype=torch.int32), 15)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention

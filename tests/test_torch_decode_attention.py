@@ -60,6 +60,16 @@ def test_decode_plain_wrapped_ring_cache(impl):
     _check(q, ck, cv, sp, cur, win, impl)
 
 
+@pytest.mark.parametrize("win,fill", [(0, 300), (128, 300)])
+def test_decode_plain_head_dim_256_group_10_matches_jax_ref(win, fill):
+    """recurrentgemma-2b's heads: 10 query heads over 1 kv head, head_dim 256;
+    with a window smaller than the filled slots."""
+    L = 320
+    q, ck, cv = _inputs(2, 10, 1, 256, L, seed=2)
+    sp = np.where(np.arange(L) < fill, np.arange(L), -1).astype(np.int32)
+    _check(q, ck, cv, sp, fill - 1, win, "ref")
+
+
 def test_decode_wrapper_rejects_bad_inputs():
     q, ck, cv = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 128, 32))
     sp = torch.arange(32, dtype=torch.int32)

@@ -72,6 +72,15 @@ def test_flash_plain_ragged_and_noncausal_match_jax_ref(S, causal, win):
     assert _maxerr(_port(q, k, v, causal=causal, window=win), ref) < TOL
 
 
+@pytest.mark.parametrize("S,win", [(200, 0), (200, 64)])
+def test_flash_plain_head_dim_256_group_10_matches_jax_ref(S, win):
+    """recurrentgemma-2b's heads: 10 query heads over 1 kv head, head_dim 256."""
+    q, k, v = _inputs(2, S, 10, 1, 256, seed=3)
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    impl="ref", window=win)
+    assert _maxerr(_port(q, k, v, window=win), ref) < TOL
+
+
 def test_flash_wrapper_rejects_bad_inputs():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 4, 2, 128))
     with pytest.raises(ValueError):

@@ -113,3 +113,20 @@ def test_init_draws_match_jax_distributions():
     assert abs(dense.kernel.std().item() - 1 / 16) < 2e-3
     assert abs(emb.table.std().item() - 0.02) < 5e-4
     assert not dense.bias.any() and not norm.scale.any()
+
+
+@pytest.mark.parametrize("cap", [30.0, 0.0])
+def test_softcap_matches_jax(cap):
+    x = (np.random.default_rng(5).normal(size=(3, 50)) * 40).astype(np.float32)
+    _close(TL.softcap(torch.from_numpy(x), cap), JL.softcap(jnp.asarray(x), cap))
+
+
+def test_tied_unembed_matches_jax():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 3, 16)).astype(np.float32)
+    table = rng.normal(size=(40, 16)).astype(np.float32)
+    emb = TL.Embedding(40, 16, dtype=torch.float32, device=None)
+    with torch.no_grad():
+        emb.table.copy_(torch.from_numpy(table))
+    _close(emb.unembed(torch.from_numpy(x)),
+           JL.unembed({"table": jnp.asarray(table)}, jnp.asarray(x)))

@@ -1,9 +1,10 @@
 """Port parity: the port's model vs repro.models.model on reduced configs
-(dense qwen2/deepseek and xLSTM).
+(dense qwen2/deepseek, xLSTM and RecurrentGemma).
 
 Weights come from the JAX ``init_params``, with every bias, norm scale,
-``conv_b`` and ``out_scale`` overwritten by random non-zero values (they are
-zero or one at init and would hide a bug), and are carried across with
+``conv_b``, ``rg_conv_b`` and ``out_scale`` overwritten by random non-zero
+values (they are zero or one at init and would hide a bug), and are carried
+across with
 ``params_from_jax``. Prefill logits, every layer's cache and four decode
 steps' logits are compared in float32 at atol 1e-4 (a whole model: several
 layers of float32 products summed in another order), and the greedy tokens
@@ -33,27 +34,38 @@ VARIANTS = {  # suffix -> config changes
     # two pattern repeats and a tail (mlstm, slstm): params_from_jax's tail path
     "-tail": dict(block_pattern=("mlstm", "slstm", "mlstm"), num_layers=8),
 }
+ARCH_VARIANTS = {  # arch -> its own suffix -> config changes
+    "recurrentgemma-2b": {
+        # one (rglru, rglru, local) repeat and a 2-layer rglru tail
+        "-tail": dict(num_layers=5),
+        # window 8 < S 12: the local layer's ring buffer wraps
+        "-window": dict(window_size=8),
+    },
+}
 
 
 def configs(arch: str):
-    """(JAX cfg, port cfg) of the reduced arch, with a ``VARIANTS`` suffix."""
-    suffix = next((v for v in VARIANTS if arch.endswith(v)), "")
+    """(JAX cfg, port cfg) of the reduced arch, with a ``VARIANTS`` or
+    ``ARCH_VARIANTS`` suffix."""
+    base = next((a for a in ARCH_VARIANTS if arch.startswith(a)), None)
+    variants = ARCH_VARIANTS[base] if base else VARIANTS
+    suffix = next((v for v in variants if arch.endswith(v)), "")
     base = arch.removesuffix(suffix)
     jcfg = JC.reduced_config(JC.ARCHS[base])
     tcfg = TC.reduced_config(TC.get_config(base))
     if suffix:
-        jcfg, tcfg = jcfg.with_(**VARIANTS[suffix]), tcfg.with_(**VARIANTS[suffix])
+        jcfg, tcfg = jcfg.with_(**variants[suffix]), tcfg.with_(**variants[suffix])
     return jcfg, tcfg
 
 
 def jax_params(cfg, seed: int):
-    """JAX init_params with biases, norm scales, conv_b and out_scale made
-    random and non-zero."""
+    """JAX init_params with biases, norm scales, conv_b, rg_conv_b and
+    out_scale made random and non-zero."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         leaf = np.array(leaf)
-        if path[-1].key in ("bias", "scale", "conv_b", "out_scale"):
+        if path[-1].key in ("bias", "scale", "conv_b", "rg_conv_b", "out_scale"):
             leaf = (rng.normal(size=leaf.shape) * 0.3 + 0.1).astype(leaf.dtype)
         return leaf
 
@@ -61,16 +73,20 @@ def jax_params(cfg, seed: int):
     return jax.tree_util.tree_map_with_path(fill, params)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b",
+                                  "recurrentgemma-2b"])
 def test_port_config_matches_jax_config(arch):
     jcfg, tcfg = configs(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     full_j, full_t = JC.ARCHS[arch], TC.get_config(arch)
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
+    assert full_t.lru_width == full_j.lru_width
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "qwen2-7b-local",
-                                  "xlstm-1.3b", "xlstm-1.3b-tail"])
+                                  "xlstm-1.3b", "xlstm-1.3b-tail",
+                                  "recurrentgemma-2b", "recurrentgemma-2b-tail",
+                                  "recurrentgemma-2b-window"])
 def test_prefill_cache_and_decode_match_jax(arch):
     jcfg, tcfg = configs(arch)
     params = jax_params(jcfg, seed=3)
@@ -117,12 +133,16 @@ def test_prefill_cache_and_decode_match_jax(arch):
 
 def test_unported_archs_and_blocks_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_config("recurrentgemma-2b")
+        TC.get_config("gemma3-12b")
     cfg = TC.reduced_config(TC.get_config("qwen2-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.CausalLM(cfg.with_(block_pattern=("rglru", "attn")))
+        TM.CausalLM(cfg.with_(qk_norm=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.CausalLM(cfg.with_(moe=TC.MoEConfig(4, 2, 32)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.CausalLM(cfg.with_(num_codebooks=4))
+    with pytest.raises(ValueError):
+        TM.CausalLM(cfg.with_(block_pattern=("mamba", "attn")), device="cpu")
     if not torch.cuda.is_available():       # no device named: the card, or raise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TM.init_params(cfg, torch.Generator().manual_seed(1))
@@ -132,11 +152,13 @@ def test_unported_archs_and_blocks_raise():
             params_from_jax(jax_params(configs("qwen2-7b")[0], seed=0), cfg)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b"])
 def test_init_params_draws_the_jax_distributions(arch):
-    """Leaf by leaf: constant leaves (zero biases and conv_b, norm scales,
-    out_scale) equal JAX's; random leaves have JAX's std within 15 % (the
-    generators differ; the smallest random leaf has 256 values)."""
+    """Leaf by leaf: constant leaves (zero biases, conv_b and rg_conv_b, norm
+    scales, out_scale) equal JAX's; random leaves have JAX's std within 15 %
+    (the generators differ; the smallest such leaf has 256 values). The
+    RG-LRU ``lam`` (64 values at this width) is held to its range instead:
+    a = exp(-8 softplus(lam)) in [0.9, 0.999]."""
     jcfg, tcfg = configs(arch)
     jax_init = jax.device_get(JM.init_params(jax.random.PRNGKey(0), jcfg))
     want = params_from_jax(jax_init, tcfg, device="cpu").state_dict()
@@ -147,6 +169,10 @@ def test_init_params_draws_the_jax_distributions(arch):
         assert leaf.dtype == ref.dtype and leaf.shape == ref.shape, name
         if ref.numel() == 1 or ref.std() == 0:
             assert torch.equal(leaf, ref), name
+        elif name.endswith("mixer.lam"):
+            for lam in (leaf, ref):
+                a = torch.exp(-8.0 * torch.nn.functional.softplus(lam))
+                assert a.min() >= 0.9 - 1e-5 and a.max() <= 0.999 + 1e-5, name
         else:
             assert abs(leaf.std().item() / ref.std().item() - 1) < 0.15, name
 

@@ -18,7 +18,8 @@ from test_torch_model import configs, jax_params  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b",
+                                  "recurrentgemma-2b"])
 def test_serving_pool_tokens_match_jax(arch):
     jcfg, tcfg = configs(arch)
     params = jax_params(jcfg, seed=7)
@@ -63,6 +64,17 @@ def test_serve_cli_serves_xlstm_on_cpu():
     assert report["cfg"].block_pattern[-1] == "slstm" and report["rounds"] == 2
     assert all(len(r.done) == 4 and (0 <= r.done).all()
                and (r.done < report["cfg"].vocab_size).all()
+               for r in report["completed"])
+
+
+def test_serve_cli_serves_recurrentgemma_on_cpu():
+    report = serve.run(["--device", "cpu", "--arch", "recurrentgemma-2b",
+                        "--requests", "3", "--max-batch", "2", "--prompt-len", "20",
+                        "--max-new", "4"])
+    cfg = report["cfg"]
+    assert cfg.tie_embeddings and 20 > cfg.window_size and report["rounds"] == 2
+    assert report["pool"].model.head is None
+    assert all(len(r.done) == 4 and (0 <= r.done).all() and (r.done < cfg.vocab_size).all()
                for r in report["completed"])
 
 
