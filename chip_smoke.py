@@ -6,16 +6,23 @@
 Phases, each of which fails the run on any error:
 
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
-   built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``;
+   built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
+   flash instance its registers and spills (``-Xptxas -v``) and, where
+   ``cuobjdump`` exists, its HGMMA and UTMALDG counts (a bf16 instance that
+   spills or lacks either fails the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
-   (attention at head_dim 128 and 256, bf16 3e-2, float32 2e-5; mLSTM: h and
+   (attention at head_dim 128 and 256, bf16 3e-2, float32 2e-5, bf16 flash
+   also at the edges of its tiles and on slices of a fused qkv; mLSTM: h and
    the final state, bf16 3e-2 of max|h| and state rel 1e-3, float32 rel
    1e-4; RG-LRU scan: float32 2e-5, bf16 3e-2), and timed beside its plain
    version, one PyTorch call computing the same function where there is one
    (``F.scaled_dot_product_attention``; none for the mLSTM or the scan: a
    yardstick the port never calls) and its bound (bytes over HBM rate,
-   operations over the peak rate of their type);
+   operations over the peak rate of their type). The attention kernels and
+   SDPA are timed as CUDA graphs of 20 calls (device time, no host gaps) in 7
+   turns of alternating order: the median, with the min and max and the
+   time of calls made one by one from the host (``eager_ms``);
 3. small models: a 2-layer qwen2-shaped model (head_dim 128), an 8-layer
    xLSTM-shaped model (dqk 128, dv 256) and a 5-layer RecurrentGemma-shaped
    model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
@@ -79,9 +86,9 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
-def time_ms(torch, fn, inputs, iters: int = 20) -> float:
+def time_ms(torch, fn, inputs, iters: int = 20, warmup: int = 3) -> float:
     """Mean device ms per call, by CUDA events; ``inputs`` rotate per call."""
-    for i in range(3):
+    for i in range(warmup):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -94,10 +101,70 @@ def time_ms(torch, fn, inputs, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_interleaved(torch, fns, inputs, repeats: int = 7, iters: int = 20) -> dict:
+    """Device time of each of ``fns`` (name -> fn): ``iters`` calls are
+    captured in a CUDA graph, so the host's per-call work (the wrappers'
+    Python, tensor-map encoding, launch) leaves no gaps between kernels, and
+    the graphs are replayed ``repeats`` times in turns that alternate the
+    order (a b b a a b ...). Returns name -> {"median": ms, "min_max": [ms,
+    ms], "eager_ms": ms}, per call; ``eager_ms`` is the mean of ``iters``
+    calls made one by one from the host, as the served model makes them."""
+    graphs, eager = {}, {}
+    for name, fn in fns.items():
+        eager[name] = time_ms(torch, fn, inputs, iters)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for i in range(iters):
+                fn(*inputs[i % len(inputs)])
+    runs = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(repeats):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            runs[name].append(time_ms(torch, graphs[name].replay, [()], 1, warmup=0) / iters)
+    return {name: {"median": sorted(v)[len(v) // 2], "min_max": [min(v), max(v)],
+                   "eager_ms": eager[name]} for name, v in runs.items()}
+
+
 def max_err(torch, out, ref) -> float:
     if not torch.isfinite(out).all():
         raise AssertionError("kernel output is not finite")
     return (out.float() - ref.float()).abs().max().item()
+
+
+def flash_build_report(lib_path: Path) -> None:
+    """Registers and spills (``-Xptxas -v``) of each flash instance and, where
+    ``cuobjdump`` exists, its count of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions. Fails if a bf16 tensor-core instance spills or lacks
+    either instruction."""
+    import re
+    from repro_torch.kernels import _build
+    instances = {}
+    for name, body in re.findall(r"Compiling entry function '(\w+)'[^\n]*\n(.*?)"
+                                 r"(?=Compiling entry function|\Z)", _build.build_log(), re.S):
+        kind = re.search(r"flash_(tc|f32)_kernel", name)
+        if kind is None:
+            continue
+        label = f"flash_{kind.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', name))}>"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        instances[name] = {"instance": label,
+                           "registers": int(re.search(r"Used (\d+) registers", body).group(1)),
+                           "spill_stores": int(spill.group(1)), "spill_loads": int(spill.group(2))}
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    if cuobjdump.is_file():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        for section in sass.split("Function : ")[1:]:
+            fn = section.split(None, 1)[0]
+            if fn in instances:
+                instances[fn]["HGMMA"] = section.count("HGMMA")
+                instances[fn]["UTMALDG"] = section.count("UTMALDG")
+    rows = sorted(instances.values(), key=lambda r: r["instance"])
+    emit({"phase": "flash_build", "cuobjdump": cuobjdump.is_file(), "instances": rows})
+    for r in rows:
+        if r["instance"].startswith("flash_tc") and (
+                r["spill_stores"] or r["spill_loads"] or r.get("HGMMA", 1) == 0
+                or r.get("UTMALDG", 1) == 0):
+            raise AssertionError(f"bf16 flash instance {r} spills or is off wgmma/TMA")
 
 
 def check_flash(torch, gen, dev):
@@ -117,12 +184,26 @@ def check_flash(torch, gen, dev):
         (2, 512, 10, 1, 256, 128, True, torch.bfloat16, 3e-2),   # window < S
         (2, 512, 10, 1, 256, 128, True, torch.float32, 2e-5),
         (1, 300, 10, 1, 256, 0, True, torch.float32, 2e-5),      # ragged S
+        # bf16 takes the tensor-core kernel: edges of its 64-row query tiles and
+        # its K/V tiles (64 keys at both head dims)
+        (1, 300, 10, 1, 256, 0, True, torch.bfloat16, 3e-2),     # ragged S, G 10
+        (2, 130, 4, 2, 128, 0, False, torch.bfloat16, 3e-2),     # ragged, not causal
+        (2, 130, 4, 2, 256, 0, False, torch.bfloat16, 3e-2),
+        (1, 256, 4, 4, 128, 63, True, torch.bfloat16, 3e-2),     # G 1, windows at edges
+        (1, 256, 7, 1, 128, 64, True, torch.bfloat16, 3e-2),     # G 7
+        (1, 300, 10, 1, 256, 65, True, torch.bfloat16, 3e-2),
+        (1, 500, 4, 2, 256, 127, True, torch.bfloat16, 3e-2),
+        (2, 300, 8, 2, 128, 0, True, "fused", 3e-2),             # slices of a fused qkv
     ]
     errs = {}
     for B, S, H, K, hd, win, causal, dtype, tol in cases:
-        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
+        if dtype == "fused":     # q, k, v as head slices of one bf16 tensor
+            qkv = torch.randn(B, S, H + 2 * K, hd, generator=gen, device=dev).bfloat16()
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        else:
+            q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=win)
         ref = flash_attention_reference(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
@@ -194,17 +275,17 @@ def measure_flash(torch, gen, dev, peak, B, S, H, K, hd, window=0):
     k = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     inputs = [(q, k, v)]
-    kernel = time_ms(torch, lambda a, b, c: flash_attention(a, b, c, window=window),
-                     inputs)
+    turns = time_interleaved(torch, {
+        "kernel": lambda a, b, c: flash_attention(a, b, c, window=window),
+        "library": lambda a, b, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True, enable_gqa=True)}, inputs)
     plain = time_ms(torch, lambda a, b, c: flash_attention_reference(
         a, b, c, window=window), inputs)
-    library = time_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
-        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-        is_causal=True, enable_gqa=True), inputs)
     pairs = S * (S + 1) // 2                       # causal (q, k) pairs
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-    return kernel, plain, library, flops, nbytes, peak[0], peak[1]
+    return interleaved_figures(turns, plain, flops, nbytes, peak)
 
 
 def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
@@ -222,16 +303,17 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
         inputs.append((torch.randn(B, H, hd, generator=gen, device=dev).bfloat16(),
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16(),
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16()))
-    kernel = time_ms(torch, lambda q, ck, cv: decode_attention(q, ck, cv, sp, cur), inputs)
+    mask = (sp >= 0).view(1, 1, 1, L)
+    turns = time_interleaved(torch, {
+        "kernel": lambda q, ck, cv: decode_attention(q, ck, cv, sp, cur),
+        "library": lambda q, ck, cv: F.scaled_dot_product_attention(
+            q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)}, inputs)
     plain = time_ms(torch, lambda q, ck, cv: decode_attention_reference(q, ck, cv, sp, cur),
                     inputs)
-    mask = (sp >= 0).view(1, 1, 1, L)
-    library = time_ms(torch, lambda q, ck, cv: F.scaled_dot_product_attention(
-        q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True), inputs)
     flops = 4 * B * H * hd * L
     nbytes = 2 * (2 * B * H * hd + 2 * B * L * K * hd) + 4 * L
-    return kernel, plain, library, flops, nbytes, peak[0], peak[1]
+    return interleaved_figures(turns, plain, flops, nbytes, peak)
 
 
 def _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype):
@@ -299,7 +381,7 @@ def measure_mlstm(torch, gen, dev, peak):
     nbytes = (2 * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out (bf16)
               + 4 * 2 * B * S * H                  # the two gates (f32)
               + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
-    return kernel, plain, None, flops, nbytes, peak[0], peak[1]
+    return measured(kernel, plain, None, flops, nbytes, peak[0], peak[1])
 
 
 def _rglru_inputs(torch, gen, dev, B, S, W, dtype):
@@ -359,31 +441,44 @@ def measure_rglru(torch, gen, dev, peak):
     plain = time_ms(torch, rglru_scan_reference, inputs, iters=5)
     flops = 2 * B * S * W                          # one FMA a step (float32)
     nbytes = 4 * (3 * B * S * W + B * W)           # a, b, h0 in, h out
-    return kernel, plain, None, flops, nbytes, peak[2], peak[1]
+    return measured(kernel, plain, None, flops, nbytes, peak[2], peak[1])
 
 
-def bound(measured):
-    """(bound ms, what bounds it) from a ``measure_*`` result."""
-    _, _, _, flops, nbytes, flops_peak, bw_peak = measured
+def measured(kernel, plain, library, flops, nbytes, flops_peak, bw_peak) -> dict:
+    """A ``measure_*`` result (ms); the bound is max(operations / peak rate of
+    their type, bytes / HBM rate)."""
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms = max(t_ops, t_bytes)
+    out = {"ms": kernel, "plain_ms": plain, "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library, "tflops": flops / kernel / 1e9,
+           "bound_share": bound_ms / kernel}
+    if library is not None:
+        out["ms_over_library_ms"] = kernel / library
+    return out
 
 
-def kernel_row(name, source, replaces, err, measured, launches, **extra):
-    kernel, plain, library = measured[:3]
-    bound_ms, bound_by = bound(measured)
+def interleaved_figures(turns, plain, flops, nbytes, peak) -> dict:
+    """``measured`` from the medians of a kernel-vs-library
+    ``time_interleaved``, with the min and max of each side's turns and the
+    eager time (calls made one by one from the host) of each."""
+    return {**measured(turns["kernel"]["median"], plain, turns["library"]["median"],
+                       flops, nbytes, peak[0], peak[1]),
+            "min_max_ms": turns["kernel"]["min_max"],
+            "library_min_max_ms": turns["library"]["min_max"],
+            "eager_ms": turns["kernel"]["eager_ms"],
+            "library_eager_ms": turns["library"]["eager_ms"]}
+
+
+def kernel_row(name, source, replaces, err, figures, launches, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(launches.values()), "max_abs_err": err, "ms": kernel,
-            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library, "launches_by_arch": launches, **extra}
+            "launches": sum(launches.values()), "max_abs_err": err, **figures,
+            "launches_by_arch": launches, **extra}
 
 
-def shape_figures(shape, err, measured):
+def shape_figures(shape, err, figures):
     """A second shape's figures of a kernel row (recurrentgemma-2b's)."""
-    kernel, plain, library = measured[:3]
-    bound_ms, bound_by = bound(measured)
-    return {"shape": shape, "max_abs_err": err, "ms": kernel, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
+    return {"shape": shape, "max_abs_err": err, **figures}
 
 
 def check_small_model(torch, dev, cfg, S: int):
@@ -603,6 +698,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(libs)})
     print(_build.build_log().strip(), flush=True)
+    flash_build_report(libs["flash_attention"])
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)

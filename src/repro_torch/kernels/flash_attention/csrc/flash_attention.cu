@@ -1,60 +1,78 @@
 // Flash attention forward for Hopper (sm_90a): causal / sliding-window
-// attention with GQA, float32 online softmax.
+// attention with GQA and an online softmax in float32.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // flash_attention_fwd (body _flash_fwd_kernel). Same function: query head h
-// reads kv head h / G, masked logits are -1e30, scale 1/sqrt(hd), output
-// acc / max(l, 1e-30) in q's dtype.
+// reads kv head h / G, scale 1/sqrt(hd), masked logits -1e30, visible keys
+// ki <= qi (causal) and ki > qi - window, output acc / max(l, 1e-30) in q's
+// dtype. Layout [B, S, H, hd] / [B, S, K, hd], head_dim 128 or 256.
 //
-// Design. One block per (b*h, 32-row query tile), 128 threads, four threads
-// per query row. The Pallas grid's sequential kv axis (m/l/acc carried in
-// VMEM scratch) becomes a loop over 32-key tiles inside the block, with m, l
-// and the row's hd-wide accumulator in registers (hd/4 floats per thread).
-// The kernel is a template on the head dim, instantiated at 128 (qwen2-7b)
-// and 256 (recurrentgemma-2b: 64 accumulator floats a thread, ~103 KB of
-// shared tiles, two blocks an SM).
-// Only the kv tiles the query tile can see are visited: tiles above the
-// diagonal or wholly outside the window are skipped (the Pallas grid visits
-// and masks them). q/k/v are read through strides in the model layout
-// [B, S, H, hd] / [B, S, K, hd], so no transposed copy is made. The ragged
-// tail (S not a multiple of 32) is masked.
+// Two kernels, chosen by dtype:
 //
-// Bound on H100. At the serving prefill shape (B=4, S=512, H=28, hd=128, bf16)
-// the causal work is ~7.5 GFLOP against ~34 MB of q/k/v/out: ~8 us at the
-// bf16 tensor-core rate and ~10 us at the HBM rate, so the shape sits near
-// the ridge; at recurrentgemma-2b's (H=10, K=1, hd=256) it is ~5.4 GFLOP
-// against ~23 MB, ~5.4 us and ~6.9 us. This first version does its products with float32 FMAs on CUDA
-// cores from padded shared-memory tiles (conflict-free reads), so it is
-// limited by shared-memory bandwidth and the FP32 rate, far above that
-// bound; moving QK^T and PV onto wgmma with TMA-fed tiles is the next step.
+// * bfloat16 -> flash_tc_kernel, on the tensor cores. S = Q K^T and O += P V
+//   are wgmma products (bf16 in, float32 accumulate). A block is one
+//   consumer warpgroup that owns a 64-row query tile (wgmma's M) of one
+//   head, and a producer warp; grid (ceil(S / 64), B * H). One producer
+//   thread feeds a ring of 2 K/V tiles of 64 keys through TMA, each stage
+//   guarded by a full and an empty mbarrier. The tensor maps are 4-D over
+//   {hd, heads, S, B} with the tensors' own byte strides, encoded per call
+//   on the host (cuTensorMapEncodeTiled, looked up through
+//   cudaGetDriverEntryPoint, so no -lcuda) from a plan the wrapper caches
+//   per layout, and passed as __grid_constant__ parameters. A box is
+//   [rows, 64] bf16 with the 128-byte swizzle, so a tile is hd / 64 boxes; the wgmma
+//   descriptors use the same swizzle. Rows past S arrive as zeros and are
+//   masked. Q and K are K-major operands; V is the MN-major B operand of the
+//   second product (transpose-B bit), and P goes from the S accumulator to
+//   the A-operand registers as bf16 pairs without a shuffle. Registers: the
+//   O accumulator takes hd / 2 floats a thread and S BK / 2; at hd 256 with
+//   BK = 64 that is 199 registers, no spills, and its 160 KB of shared
+//   memory leave one block an SM (80 KB and two blocks at hd 128). Only kv
+//   tiles the query tile can see are loaded; tiles on the diagonal, at the
+//   window's edge or past S are masked in registers, from each accumulator
+//   register's (row, column) in the m64nN fragment layout. One instance per
+//   head dim: 3 stages, 32-key tiles at hd 256 and two consumer warpgroups
+//   sharing each K/V tile were each slower at the serving shapes.
+// * float32 -> flash_f32_kernel, float32 FMAs on CUDA cores. Float32 wgmma
+//   would be TF32, which would break the float32 tolerance (2e-5) that the
+//   float32 models hold the kernel to. One block per (b * h, 32-row query
+//   tile), four threads per row, padded float tiles in shared memory.
+//
+// Bound on H100 (989 TFLOP/s bf16, 3.35 TB/s): at qwen2-7b's prefill shape
+// (B 4, S 512, H 28, K 4, hd 128, causal, bf16) the work is ~7.5 GFLOP
+// against ~33.6 MB of q, k, v and out: 0.0076 ms of tensor-core time and
+// 0.0100 ms of HBM time, so bytes bound it. At recurrentgemma-2b's (H 10,
+// K 1, hd 256) it is ~5.4 GFLOP against ~23 MB: 0.0055 / 0.0069 ms.
+// Both shapes sit near the ridge. A warpgroup runs its two products and the
+// softmax between them one after another, so the tensor cores idle during
+// the softmax unless another block on the SM fills them.
 
+#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 32;           // query rows per block
-constexpr int BK = 32;           // keys per kv tile
-constexpr int THREADS = 128;     // 4 threads per query row
-constexpr int COLS = BK / 4;     // score columns per thread
 constexpr float NEG_INF = -1e30f;
 
-template <int HD>                // head dim: 128 or 256
-constexpr int smem_floats() { return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1); }
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernel
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int F_BQ = 32;           // query rows per block
+constexpr int F_BK = 32;           // keys per kv tile
+constexpr int F_THREADS = 128;     // 4 threads per query row
+constexpr int F_COLS = F_BK / 4;   // score columns per thread
+
+template <int HD>                  // head dim: 128 or 256
+constexpr int f32_smem_floats() {
+  return F_BQ * (HD + 1) + F_BK * (HD + 1) + F_BK * HD + F_BQ * (F_BK + 1);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int S, int H, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -64,67 +82,67 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DPT = HD / 4;          // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BQ][HD+1]  (padded: no bank conflicts)
-  float* Ks = Qs + BQ * (HD + 1);      // [BK][HD+1]
-  float* Vs = Ks + BK * (HD + 1);      // [BK][HD]
-  float* Ps = Vs + BK * HD;            // [BQ][BK+1]
+  float* Ks = Qs + F_BQ * (HD + 1);    // [BK][HD+1]
+  float* Vs = Ks + F_BK * (HD + 1);    // [BK][HD]
+  float* Ps = Vs + F_BK * HD;          // [BQ][BK+1]
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H, kh = h / G;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * F_BQ;
   const int t = threadIdx.x;
   const int r = t >> 2;                // this thread's query row in the tile
   const int c0 = t & 3;                // its first score / accumulator column
   const int qi = q0 + r;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + kh * k_sh;
+  const float* vb = v + b * v_sb + kh * v_sh;
 
-  for (int e = t; e < BQ * HD; e += THREADS) {
+  for (int e = t; e < F_BQ * HD; e += F_THREADS) {
     const int row = e / HD, d = e % HD;
     const int qr = q0 + row;
-    Qs[row * (HD + 1) + d] = qr < S ? to_float(qb[qr * q_ss + d]) : 0.f;
+    Qs[row * (HD + 1) + d] = qr < S ? qb[qr * q_ss + d] : 0.f;
   }
 
   // kv tiles this query tile can see
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + F_BQ, S) - 1;
   const int kv_end = causal ? q_last + 1 : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int tile_end = (kv_end + BK - 1) / BK;
+  const int tile_end = (kv_end + F_BK - 1) / F_BK;
 
   float m = NEG_INF, l = 0.f;
   float acc[DPT];
 #pragma unroll
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
 
-  for (int tile = kv_begin / BK; tile < tile_end; ++tile) {
-    const int k0 = tile * BK;
+  for (int tile = kv_begin / F_BK; tile < tile_end; ++tile) {
+    const int k0 = tile * F_BK;
     __syncthreads();                   // previous K/V consumed, Q stored
-    for (int e = t; e < BK * HD; e += THREADS) {
+    for (int e = t; e < F_BK * HD; e += F_THREADS) {
       const int row = e / HD, d = e % HD;
       const int kr = k0 + row;
       const bool in = kr < S;
-      Ks[row * (HD + 1) + d] = in ? to_float(kb[kr * k_ss + d]) : 0.f;
-      Vs[row * HD + d] = in ? to_float(vb[kr * v_ss + d]) : 0.f;
+      Ks[row * (HD + 1) + d] = in ? kb[kr * k_ss + d] : 0.f;
+      Vs[row * HD + d] = in ? vb[kr * v_ss + d] : 0.f;
     }
     __syncthreads();
 
-    float s[COLS];
+    float s[F_COLS];
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) s[j] = 0.f;
+    for (int j = 0; j < F_COLS; ++j) s[j] = 0.f;
     const float* qrow = Qs + r * (HD + 1);
     const float* kcol = Ks + c0 * (HD + 1);
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
       const float qd = qrow[d];
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) s[j] = fmaf(qd, kcol[4 * j * (HD + 1) + d], s[j]);
+      for (int j = 0; j < F_COLS; ++j) s[j] = fmaf(qd, kcol[4 * j * (HD + 1) + d], s[j]);
     }
 
-    bool valid[COLS];
+    bool valid[F_COLS];
     float m_tile = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
+    for (int j = 0; j < F_COLS; ++j) {
       const int ki = k0 + c0 + 4 * j;
       valid[j] = ki < S && (!causal || ki <= qi) && (window <= 0 || ki > qi - window);
       s[j] = valid[j] ? s[j] * scale : NEG_INF;
@@ -137,10 +155,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - m_new);
     float rowsum = 0.f;
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
+    for (int j = 0; j < F_COLS; ++j) {
       const float p = valid[j] ? expf(s[j] - m_new) : 0.f;
       rowsum += p;
-      Ps[r * (BK + 1) + c0 + 4 * j] = p;
+      Ps[r * (F_BK + 1) + c0 + 4 * j] = p;
     }
     rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
     rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 2);
@@ -150,8 +168,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[j] *= alpha;
-    const float* prow = Ps + r * (BK + 1);
-    for (int c = 0; c < BK; ++c) {
+    const float* prow = Ps + r * (F_BK + 1);
+    for (int c = 0; c < F_BK; ++c) {
       const float p = prow[c];
       const float* vrow = Vs + c * HD + c0;
 #pragma unroll
@@ -161,64 +179,498 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
+    float* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[c0 + 4 * j] = from_float<T>(acc[j] * inv);
+    for (int j = 0; j < DPT; ++j) orow[c0 + 4 * j] = acc[j] * inv;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int K,
-                   const int64_t* qs, const int64_t* ks, const int64_t* vs,
-                   const int64_t* os, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_floats<HD>() * sizeof(float);
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int K,
+                       const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                       const int64_t* os, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = f32_smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, H / K,
+  const dim3 grid((S + F_BQ - 1) / F_BQ, B * H);
+  flash_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       os[0], os[1], os[2], causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o,
-                              int B, int S, int H, int K, int hd, const int64_t* qs,
-                              const int64_t* ks, const int64_t* vs, const int64_t* os,
-                              int causal, int window, float scale, cudaStream_t st) {
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, K, qs, ks, vs, os, causal, window, scale, st);
-  if (hd == 256)
-    return launch<T, 256>(q, k, v, o, B, S, H, K, qs, ks, vs, os, causal, window, scale, st);
-  return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel (wgmma, TMA, mbarriers)
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64;             // query rows per block (wgmma M)
+constexpr int BK = 64;             // keys per K/V tile (wgmma N of Q K^T)
+constexpr int STAGES = 2;          // K/V tiles in the shared-memory ring
+constexpr int ATOM = 64;           // bf16 columns in one 128-byte swizzle row
+constexpr int WG = 128;            // threads in a warpgroup
+constexpr int TC_THREADS = WG + 32;  // the consumer warpgroup and a producer warp
+constexpr int PLAN = 11;           // int64 values of one tensor-map plan
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed. A wait of more than
+// 2^35 cycles (~17 s) means a lost load or arrival: trap rather than hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma operand registers
+// across the fence / wait instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets are in
+// 16-byte units. K-major (Q, K): rows 128 bytes apart, 8-row groups SBO = 1024
+// bytes apart, LBO unused (1). MN-major (V): LBO = the stride from one
+// 64-column block to the next, SBO = 1024 bytes between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16)
+         | ((uint64_t)(sbo & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (bf16 pairs),
+// B MN-major in shared memory (the transpose-B bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] B[16 x 256]: A from registers (bf16 pairs),
+// B MN-major in shared memory (the transpose-B bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 128 || N == 256, "head dim 128 or 256");
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int HD>
+struct TcLayout {                   // byte offsets from a 1024-aligned base
+  static constexpr int Q_BYTES = BM * HD * 2;        // the 64-row Q tile
+  static constexpr int KV_BYTES = BK * HD * 2;       // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
+// Grid: (ceil(S / 64), B * H); block y is (batch b, query head h), which
+// reads kv head h / G.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ o, int S, int H, int G,
+                int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                int causal, int window, float scale_log2) {
+  using L = TcLayout<HD>;
+  constexpr int ATOMS = HD / ATOM;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR_OFF;
+  const uint32_t full0 = q_full + 8;                 // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * STAGES;        // empty[s] = empty0 + 8 s
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
+  const int q0 = blockIdx.x * BM;
+
+  // kv tiles this query tile can see
+  const int kv_end = causal ? min(q0 + BM, S) : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t0 = kv_begin / BK;
+  const int n_tiles = (kv_end + BK - 1) / BK - t0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG) {
+    // producer: one thread starts every load
+    if (threadIdx.x != WG) return;
+    mbar_expect_tx(q_full, L::Q_BYTES);
+    for (int a = 0; a < ATOMS; ++a)
+      tma_load_4d(base + a * BM * 128, &tm_q, q_full, a * ATOM, h, q0, b);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      if (t >= STAGES) mbar_wait(empty0 + 8 * s, ((t / STAGES) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * s;
+      mbar_expect_tx(full, 2 * L::KV_BYTES);
+      const int k0 = (t0 + t) * BK;
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load_4d(base + L::K_OFF + s * L::KV_BYTES + a * BK * 128, &tm_k, full,
+                    a * ATOM, kh, k0, b);
+        tma_load_4d(base + L::V_OFF + s * L::KV_BYTES + a * BK * 128, &tm_v, full,
+                    a * ATOM, kh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: 64 query rows of head h. m64nN fragment: this
+  // thread holds rows r0 and r0 + 8 of the tile, columns 8 i + 2 (lane % 4)
+  // + {0, 1}; register 4 i + {0, 1} is row r0, 4 i + {2, 3} row r0 + 8.
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4;
+  const int cq = 2 * (lane % 4);
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(full0 + 8 * s, (t / STAGES) & 1);
+    const uint32_t k_base = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_base = base + L::V_OFF + s * L::KV_BYTES;
+
+    // S = Q K^T: hd / 16 steps of k16; each 64-column atom holds 4 of them
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    fence_regs<BK / 2>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(sc, smem_desc(base + (kk / 4) * BM * 128 + (kk % 4) * 32, 1, 64),
+                   smem_desc(k_base + (kk / 4) * BK * 128 + (kk % 4) * 32, 1, 64), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<BK / 2>(sc);
+
+    // mask, then the online softmax (log2 domain) of rows r0 and r0 + 8
+    const int k0 = (t0 + t) * BK;
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BM - 1 - window);
+    float m_tile[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int half = (i % 4) / 2;              // 0: row r0, 1: row r0 + 8
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int qi = q0 + r0 + 8 * half;
+        const int ki = k0 + 8 * (i / 4) + cq + (i % 2);
+        const bool ok = ki < S && (!causal || ki <= qi) && (window <= 0 || ki > qi - window);
+        x = ok ? x : NEG_INF;
+      }
+      sc[i] = x;
+      m_tile[half] = fmaxf(m_tile[half], x);
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four lanes of a row are neighbours
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 1));
+      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 2));
+      const float m_new = fmaxf(m_run[r], m_tile[r]);
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      // a row with no visible key yet: its masked entries must give p = 0
+      m_use[r] = m_new == NEG_INF ? 0.f : m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int half = (i % 4) / 2;
+      const float p = exp2f(sc[i] - m_use[half]);
+      sc[i] = p;
+      psum[half] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+
+    // P as the A operand: the accumulator of keys 16 j .. 16 j + 15 is
+    // already in the register layout of a k16 A fragment
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+      pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+      pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+      pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+    }
+
+    // O += P V: V [BK keys][hd] is MN-major; k16 step j starts 16 rows down
+    fence_regs<HD / 2>(acc);
+    fence_regs<BK / 4>(&pa[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      wgmma_pv<HD>(acc, pa[j], smem_desc(v_base + j * 16 * 128, BK * 128 / 16, 64));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<HD / 2>(acc);
+    mbar_arrive(empty0 + 8 * s);
+  }
+
+  // out = acc / max(l, 1e-30); rows past S are not written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + 8 * r;
+    if (qi >= S) continue;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* orow = o + b * o_sb + qi * o_ss + h * o_sh + cq;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// plan: dims {hd, heads, S, B}, byte strides of dims 1..3, box {64, 1, rows, 1}
+// (ops.tensor_map_plan computes it and checks what TMA requires; the
+// wrapper checks each call's base address).
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, const int64_t* plan, int hd,
+                       int heads, int S, int B, int rows) {
+  if (plan[0] != hd || plan[1] != heads || plan[2] != S || plan[3] != B || plan[7] != ATOM ||
+      plan[8] != 1 || plan[9] != rows || plan[10] != 1)
+    return cudaErrorInvalidValue;
+  EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)plan[0], (cuuint64_t)plan[1], (cuuint64_t)plan[2],
+                              (cuuint64_t)plan[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)plan[4], (cuuint64_t)plan[5], (cuuint64_t)plan[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)ATOM, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// args: the plans of q, k and v (PLAN values each), then o's element
+// strides (batch, seq, head).
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
+                      int H, int K, const int64_t* args, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  using L = TcLayout<HD>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err;
+  if ((err = encode_map(&tm_q, q, args, HD, H, S, B, BM)) != cudaSuccess) return err;
+  if ((err = encode_map(&tm_k, k, args + PLAN, HD, K, S, B, BK)) != cudaSuccess) return err;
+  if ((err = encode_map(&tm_v, v, args + 2 * PLAN, HD, K, S, B, BK)) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::BYTES);
+  if (err != cudaSuccess) return err;
+  const int64_t* os = args + 3 * PLAN;
+  const dim3 grid((S + BM - 1) / BM, B * H);
+  flash_tc_kernel<HD><<<grid, TC_THREADS, L::BYTES, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), S, H, H / K, os[0], os[1], os[2],
+      causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 128 or 256. Strides are in elements,
-// ordered (batch, seq, head); the head dim must be contiguous. Returns a cudaError_t.
-extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* o, int B, int S, int H,
-                                   int K, int hd, const int64_t* q_strides,
-                                   const int64_t* k_strides,
-                                   const int64_t* v_strides,
-                                   const int64_t* o_strides, int causal,
-                                   int window, float scale, void* stream) {
-  if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0)
-    return (int)cudaErrorInvalidValue;
+// float32 inputs. hd: 128 or 256. Strides are in elements, ordered (batch,
+// seq, head); the head dim must be contiguous. Returns a cudaError_t.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                       int B, int S, int H, int K, int hd,
+                                       const int64_t* q_strides, const int64_t* k_strides,
+                                       const int64_t* v_strides, const int64_t* o_strides,
+                                       int causal, int window, float scale, void* stream) {
+  if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_head_dim<float>(q, k, v, o, B, S, H, K, hd, q_strides, k_strides,
-                                         v_strides, o_strides, causal, window, scale, st);
-  if (dtype == 1)
-    return (int)dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, S, H, K, hd, q_strides,
-                                                 k_strides, v_strides, o_strides, causal,
-                                                 window, scale, st);
+  if (hd == 128)
+    return (int)launch_f32<128>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides,
+                                o_strides, causal, window, scale, st);
+  if (hd == 256)
+    return (int)launch_f32<256>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides,
+                                o_strides, causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16 inputs. args: 3 * 11 + 3 int64, the tensor maps of q, k and v
+// (dims, byte strides, box; see encode_map), then o's strides in elements
+// (batch, seq, head). Returns a cudaError_t.
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                        int B, int S, int H, int K, int hd,
+                                        const int64_t* args, int causal, int window,
+                                        float scale, void* stream) {
+  if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128)
+    return (int)launch_tc<128>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
+  if (hd == 256)
+    return (int)launch_tc<256>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

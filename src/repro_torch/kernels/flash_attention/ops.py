@@ -1,35 +1,117 @@
-"""Flash attention wrapper: plain version on the CPU, CUDA kernel on the card.
+"""Flash attention wrapper: plain version on the CPU, CUDA kernels on the card.
 
 ``flash_attention`` takes the model layout ``[B, S, H, hd]`` / ``[B, S, K, hd]``
 as ``repro.kernels.flash_attention.ops`` does. A CPU tensor goes to the plain
-version (``ref.py``); a CUDA tensor launches ``csrc/flash_attention.cu``
-(head_dim 128 or 256) or raises. ``flash_attention.launches`` counts kernel
-launches.
+version (``ref.py``). A CUDA tensor launches ``csrc/flash_attention.cu``
+(head_dim 128 or 256) or raises:
+
+* bfloat16 takes the tensor-core kernel: ``wgmma`` products, K/V tiles fed by
+  TMA through a ring of shared-memory stages. Its tensor maps are planned here
+  (``tensor_map_plan``, cached per shape and strides; the base address is
+  checked on every call); a layout TMA cannot take (a byte stride that is
+  not a multiple of 16, a base that is not 16-byte aligned, a strided head
+  dim) raises ``ValueError``.
+* float32 takes the CUDA-core kernel (float32 FMAs): ``wgmma`` in float32 is
+  TF32, which would not hold the float32 tolerance.
+
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128, 256)
+BLOCK_Q = 64         # query rows a block: wgmma's M (BM in the source)
+BLOCK_K = 64         # keys a K/V tile (BK in the source)
+BOX_COLS = 64        # bf16 columns in one 128-byte swizzle row: a box's inner extent
+
+
+class TensorMapPlan(NamedTuple):
+    """A 4-D TMA tensor map over a ``[B, S, heads, hd]`` bf16 tensor."""
+    dims: Tuple[int, int, int, int]       # {hd, heads, S, B}, innermost first
+    strides: Tuple[int, int, int]         # bytes, of dims heads, S, B
+    box: Tuple[int, int, int, int]        # {64, 1, rows, 1}
+
+    def values(self) -> Tuple[int, ...]:
+        """The 11 int64 values the kernel's entry point reads."""
+        return self.dims + self.strides + self.box
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shape: Tuple[int, ...], stride: Tuple[int, ...], dtype: torch.dtype,
+          rows: int) -> TensorMapPlan:
+    if len(shape) != 4:
+        raise ValueError(f"expected [B, S, heads, hd], got {shape}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the TMA path takes bfloat16, got {dtype}")
+    B, S, heads, hd = shape
+    if hd % BOX_COLS:
+        raise ValueError(f"head_dim {hd} is not a multiple of {BOX_COLS}")
+    if not 0 < rows <= 256:
+        raise ValueError(f"box rows {rows} outside 1..256")
+    if stride[3] != 1:
+        raise ValueError(f"TMA needs a contiguous head dim, got stride {stride[3]}")
+    size = dtype.itemsize
+    strides, prev = [], hd * size            # bytes spanned by the inner dims
+    for name, n, st in (("head", heads, stride[2]), ("seq", S, stride[1]),
+                        ("batch", B, stride[0])):
+        nbytes = st * size if n > 1 else prev
+        if nbytes % 16 or not 0 < nbytes < 2 ** 40:
+            raise ValueError(f"TMA needs byte strides that are positive multiples "
+                             f"of 16, got {nbytes} for the {name} dim")
+        strides.append(nbytes)
+        prev = nbytes * n
+    return TensorMapPlan((hd, heads, S, B), tuple(strides), (BOX_COLS, 1, rows, 1))
+
+
+def tensor_map_plan(t: torch.Tensor, rows: int) -> TensorMapPlan:
+    """The tensor map the bf16 kernel builds over ``t`` [B, S, heads, hd],
+    loading boxes of ``rows`` rows by 64 columns. Raises ``ValueError`` where
+    TMA cannot take the layout. A dim of size 1 gets its contiguous stride:
+    its coordinate is always 0."""
+    plan = _plan(tuple(t.shape), t.stride(), t.dtype, rows)
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base, got address "
+                         f"{t.data_ptr():#x}")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(plans: Tuple[TensorMapPlan, ...], o_stride: Tuple[int, ...]) -> ctypes.Array:
+    return _build.int64_array(sum((p.values() for p in plans), ()) + o_stride)
+
+
+def bf16_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor) -> ctypes.Array:
+    """The bf16 entry point's ``args``: the plans of q (64-row boxes), k and v
+    (``BLOCK_K``-row boxes), then out's element strides (batch, seq, head).
+    Plans and the packed array are cached per layout; each call checks the
+    three base addresses."""
+    plans = (tensor_map_plan(q, BLOCK_Q), tensor_map_plan(k, BLOCK_K),
+             tensor_map_plan(v, BLOCK_K))
+    return _packed(plans, out.stride()[:3])
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [i64p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                        ctypes.c_void_p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [i64p] * 4
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_fwd_bf16.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [i64p]
+        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.flash_attention_fwd_f32, lib.flash_attention_fwd_bf16):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -48,6 +130,37 @@ def _check_inputs(q, k, v):
         raise ValueError("q, k and v must have one dtype")
 
 
+def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """Launch the kernel for CUDA tensors."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd}")
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(hd)
+    if q.dtype == torch.bfloat16:
+        args = (bf16_kernel_args(q, k, v, out), int(causal), int(window), scale)
+        entry = "flash_attention_fwd_bf16"
+    elif q.dtype == torch.float32:
+        if any(t.stride(3) != 1 for t in (q, k, v)):
+            raise ValueError("flash_attention kernel needs a contiguous head dim")
+        strides = [_build.int64_array(t.stride()[:3]) for t in (q, k, v, out)]
+        args = (*strides, int(causal), int(window), scale)
+        entry = "flash_attention_fwd_f32"
+    else:
+        raise ValueError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), B, S, H, K, hd, *args, stream)
+    _build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, S, H, hd]; k/v: [B, S, K, hd]. Returns [B, S, H, hd] in q's dtype."""
@@ -56,27 +169,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_reference(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, S, H, hd = q.shape
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd}")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel needs a contiguous head dim")
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    lib = _lib()
-    strides = [_build.int64_array(t.stride()[:3]) for t in (q, k, v, out)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, k.shape[2], hd, *strides,
-            int(causal), int(window), 1.0 / math.sqrt(hd), stream)
-    _build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0

@@ -47,6 +47,84 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, K, win, causal, dtype):
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+def _flash_case(gen, B, S, H, K, hd, dtype=torch.bfloat16):
+    return (_randn(gen, B, S, H, hd, dtype=dtype), _randn(gen, B, S, K, hd, dtype=dtype),
+            _randn(gen, B, S, K, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("B,S,H,K,win,causal", [
+    (2, 500, 28, 4, 0, True),                    # ragged S, group 7
+    (1, 300, 10, 1, 0, True),                    # group 10
+    (2, 130, 4, 2, 0, False),                    # ragged, not causal
+    (1, 256, 4, 4, 63, True),                    # group 1; windows at tile edges
+    (1, 256, 7, 1, 64, True),
+    (1, 300, 10, 1, 65, True),
+    (1, 500, 4, 2, 127, True),
+    (1, 200, 4, 2, 64, False),                   # window, not causal
+])
+def test_flash_bf16_tensor_core_kernel_edges(cuda, B, S, H, K, win, causal, hd):
+    """The wgmma/TMA kernel at the edges of its 64-row and BK-key tiles."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = _flash_case(cuda, B, S, H, K, hd)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=win)
+    ref = ops.flash_attention_reference(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, H, hd)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_bf16_every_compiled_instance_matches_plain(cuda, hd):
+    """The head dim's one bf16 instance, over shapes in turn: each call reuses
+    or adds a cached plan and must still read its own tensors."""
+    from repro_torch.kernels.flash_attention import ops
+    for B, S, H, K, win, causal in [(2, 500, 28, 4, 0, True), (1, 130, 4, 2, 0, False),
+                                    (1, 300, 10, 1, 65, True), (1, 256, 7, 1, 64, True),
+                                    (2, 500, 28, 4, 0, True)]:
+        q, k, v = _flash_case(cuda, B, S, H, K, hd)
+        ref = ops.flash_attention_reference(q, k, v, causal=causal, window=win)
+        out = ops.flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err < TOL[torch.bfloat16], ((B, S, H, K, win, causal), err)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_bf16_takes_slices_of_a_fused_qkv(cuda, hd):
+    """q, k and v as head slices of one [B, S, H + 2K, hd] tensor: TMA reads
+    them through their own strides, no copy."""
+    from repro_torch.kernels.flash_attention import ops
+    B, S, H, K = 2, 300, 8, 2
+    fused = _randn(cuda, B, S, H + 2 * K, hd, dtype=torch.bfloat16)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + K], fused[:, :, H + K:]
+    assert not q.is_contiguous()
+    out = ops.flash_attention(q, k, v)
+    ref = ops.flash_attention_reference(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+
+
+def test_flash_bf16_rejects_layouts_tma_cannot_take(cuda):
+    from repro_torch.kernels.flash_attention import ops
+    B, S, H, hd = 1, 64, 4, 128
+    q, k, v = _flash_case(cuda, B, S, H, H, hd)
+    n = B * S * H * hd
+    shifted = _randn(cuda, n + 8, dtype=torch.bfloat16)[1:n + 1].view(B, S, H, hd)
+    odd_rows = _randn(cuda, B, S, H * hd + 1, dtype=torch.bfloat16)[..., :H * hd]
+    odd_rows = odd_rows.unflatten(-1, (H, hd))                 # seq stride 1026 bytes
+    strided_hd = _randn(cuda, B, S, H, 2 * hd, dtype=torch.bfloat16)[..., ::2]
+    before = ops.flash_attention.launches
+    for bad in (shifted, odd_rows, strided_hd):
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(q, k, bad)
+    assert ops.flash_attention.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,L,win,fill", [
     (2, 8, 2, 1024, 0, 1024), (2, 8, 4, 1024, 0, 700), (1, 4, 1, 512, 256, 512),

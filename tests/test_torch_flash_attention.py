@@ -5,6 +5,8 @@ the interpreter) and impl="ref", and vs the model's chunked attention.
 float32 throughout; tolerance 2e-5, the JAX package's own kernel tolerance
 (tests/test_kernels.py): the sums run in a different order on each side.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -89,3 +91,111 @@ def test_flash_wrapper_rejects_bad_inputs():
         ops.flash_attention(q[:, :, :3], k, v)          # 3 heads over 2 kv heads
     with pytest.raises(ValueError):
         ops.flash_attention(q, k.double(), v)
+
+
+# The bf16 kernel's tensor maps are planned in Python (ops.tensor_map_plan):
+# the byte strides, box and alignment checks run here on CPU tensors.
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,rows,strides", [
+    ((4, 512, 28, 128), 64, (256, 7168, 3670016)),      # qwen2-7b q
+    ((4, 512, 4, 128), 64, (256, 1024, 524288)),         # its k / v
+    ((4, 512, 10, 256), 64, (512, 5120, 2621440)),       # recurrentgemma-2b q
+    ((4, 512, 1, 256), 32, (512, 512, 262144)),          # its k / v, one head; 32-row box
+])
+def test_tensor_map_plan_of_contiguous_tensors(shape, rows, strides):
+    B, S, heads, hd = shape
+    plan = ops.tensor_map_plan(_bf16(*shape), rows)
+    assert plan.dims == (hd, heads, S, B)
+    assert plan.strides == strides
+    assert plan.box == (ops.BOX_COLS, 1, rows, 1) and ops.BOX_COLS * 2 == 128
+    assert plan.values() == (hd, heads, S, B, *strides, 64, 1, rows, 1)
+
+
+def test_tensor_map_plan_of_slices_of_a_fused_qkv():
+    B, S, H, K, hd = 2, 300, 28, 4, 128
+    fused = _bf16(B, S, H + 2 * K, hd)
+    row = (H + 2 * K) * hd * 2
+    for t, heads in ((fused[:, :, :H], H), (fused[:, :, H:H + K], K),
+                     (fused[:, :, H + K:], K)):
+        plan = ops.tensor_map_plan(t, 64)
+        assert plan.dims == (hd, heads, S, B)
+        assert plan.strides == (hd * 2, row, S * row)
+
+
+def test_tensor_map_plan_gives_size_one_dims_their_contiguous_stride():
+    t = torch.zeros(64 * 256 + 8, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 256), (3, 256, 5, 1))       # strides of size-1 dims are free
+    plan = ops.tensor_map_plan(t, 32)
+    assert plan.strides == (512, 512, 64 * 512)
+
+
+def test_tensor_map_plan_rejects_what_tma_cannot_take():
+    B, S, H, hd = 1, 64, 4, 128
+    n = B * S * H * hd
+    cases = {
+        "16-byte aligned base": _bf16(n + 8)[1:n + 1].view(B, S, H, hd),
+        "multiples of 16": _bf16(B, S, H * hd + 1)[..., :H * hd].unflatten(-1, (H, hd)),
+        "contiguous head dim": _bf16(B, S, H, 2 * hd)[..., ::2],
+        "bfloat16": torch.zeros(B, S, H, hd),
+        "multiple of 64": _bf16(B, S, H, 96),
+    }
+    for why, t in cases.items():
+        with pytest.raises(ValueError, match=why):
+            ops.tensor_map_plan(t, 64)
+    with pytest.raises(ValueError, match="box rows"):
+        ops.tensor_map_plan(_bf16(B, S, H, hd), 512)
+
+
+def test_tile_configs_name_instances_of_the_kernel_source():
+    """The wrapper's tile sizes are the source's, each head dim has an
+    instance, and a K/V tile is a whole number of wgmma k16 steps."""
+    source = (Path(ops.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    assert f"constexpr int BM = {ops.BLOCK_Q};" in source
+    assert f"constexpr int BK = {ops.BLOCK_K};" in source
+    assert f"constexpr int PLAN = {len(ops.tensor_map_plan(_bf16(1, 64, 1, 128), 64).values())};" \
+        in source
+    for hd in ops.HEAD_DIMS:
+        assert f"launch_tc<{hd}>(" in source
+    assert ops.BLOCK_K % 16 == 0 and ops.BLOCK_Q == 64
+
+
+def test_flash_bf16_cpu_tensors_take_the_plain_version():
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(1, 100, 4, 2, 128))
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, window=32)
+    assert out.dtype == torch.bfloat16 and ops.flash_attention.launches == before
+    want = ops.flash_attention_reference(q, k, v, window=32)
+    assert torch.equal(out, want)
+
+
+def test_bf16_kernel_args_pack_the_three_plans_and_out_strides():
+    B, S, H, K, hd = 2, 300, 8, 2, 128
+    fused = _bf16(B, S, H + 2 * K, hd)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + K], fused[:, :, H + K:]
+    out = _bf16(B, S, H, hd)
+    args = list(ops.bf16_kernel_args(q, k, v, out))
+    assert args == [*ops.tensor_map_plan(q, ops.BLOCK_Q).values(),
+                    *ops.tensor_map_plan(k, ops.BLOCK_K).values(),
+                    *ops.tensor_map_plan(v, ops.BLOCK_K).values(), *out.stride()[:3]]
+
+
+def test_bf16_kernel_args_are_cached_per_layout_and_check_each_base():
+    """A second call with the same shapes and strides reuses the packed plans,
+    but a base that is not 16-byte aligned still raises."""
+    B, S, H, K, hd = 1, 64, 4, 2, 128
+    q, k, v, out = _bf16(B, S, H, hd), _bf16(B, S, K, hd), _bf16(B, S, K, hd), _bf16(B, S, H, hd)
+    first = ops.bf16_kernel_args(q, k, v, out)
+    q2, k2, v2 = _bf16(B, S, H, hd), _bf16(B, S, K, hd), _bf16(B, S, K, hd)
+    assert ops.bf16_kernel_args(q2, k2, v2, out) is first
+    n = B * S * K * hd
+    shifted = _bf16(n + 8)[1:n + 1].view(B, S, K, hd)        # same shape and strides
+    for args in ((shifted, k, v, out), (q, shifted, v, out), (q, k, shifted, out)):
+        with pytest.raises(ValueError, match="16-byte aligned base"):
+            ops.bf16_kernel_args(*args)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        odd = _bf16(B, S, K * hd + 1)[..., :K * hd].unflatten(-1, (K, hd))
+        ops.bf16_kernel_args(q, odd, v, out)
