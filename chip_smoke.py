@@ -7,22 +7,28 @@ Phases, each of which fails the run on any error:
 
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
-   flash instance its registers and spills (``-Xptxas -v``) and, where
-   ``cuobjdump`` exists, its HGMMA and UTMALDG counts (a bf16 instance that
-   spills or lacks either fails the run);
+   flash, decode and mLSTM instance its registers and spills (``-Xptxas -v``)
+   and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
+   that spills, or a tensor-core instance -- bf16 flash, the mLSTM state and
+   output passes -- that lacks either, fails the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
    (attention at head_dim 128 and 256, bf16 3e-2, float32 2e-5, bf16 flash
-   also at the edges of its tiles and on slices of a fused qkv; mLSTM: h and
-   the final state, bf16 3e-2 of max|h| and state rel 1e-3, float32 rel
-   1e-4; RG-LRU scan: float32 2e-5, bf16 3e-2), and timed beside its plain
-   version, one PyTorch call computing the same function where there is one
+   also at the edges of its tiles and on slices of a fused qkv, decode also
+   with empty splits, a long windowed cache, no valid slot and groups of 1
+   to 16; mLSTM: h and the final state, bf16 3e-2 of max|h| and state rel
+   1e-3, float32 rel 1e-4, ragged dv tiles and chunk 73; RG-LRU scan:
+   float32 2e-5, bf16 3e-2), and timed beside its plain version, one
+   PyTorch call computing the same function where there is one
    (``F.scaled_dot_product_attention``; none for the mLSTM or the scan: a
    yardstick the port never calls) and its bound (bytes over HBM rate,
    operations over the peak rate of their type). The attention kernels and
-   SDPA are timed as CUDA graphs of 20 calls (device time, no host gaps) in 7
-   turns of alternating order: the median, with the min and max and the
-   time of calls made one by one from the host (``eager_ms``);
+   SDPA, and the mLSTM call, are timed as CUDA graphs of 20 calls (device
+   time, no host gaps) in 7 turns of alternating order: the median, with
+   the min and max and the time of calls made one by one from the host
+   (``eager_ms``). The decode row names its split plan and grid size; the
+   decode kernel is also built with its phase clocks and each phase's share
+   of a block's cycles printed at both serving shapes (``decode_phases``);
 3. small models: a 2-layer qwen2-shaped model (head_dim 128), an 8-layer
    xLSTM-shaped model (dqk 128, dv 256) and a 5-layer RecurrentGemma-shaped
    model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
@@ -35,8 +41,9 @@ Phases, each of which fails the run on any error:
    versions are made to raise until it ends, so each run proves that every
    attention, mLSTM or RG-LRU prefill call went through the kernels;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
-   each served model: kernel time by name and the device's idle share; for
-   xlstm-1.3b also the wall time of one mLSTM and one sLSTM block.
+   each served model: kernel time by name (the top eight and every kernel of
+   the port) and the device's idle share; for xlstm-1.3b also the wall time
+   of one mLSTM and one sLSTM block.
 
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -131,40 +139,66 @@ def max_err(torch, out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
-def flash_build_report(lib_path: Path) -> None:
-    """Registers and spills (``-Xptxas -v``) of each flash instance and, where
-    ``cuobjdump`` exists, its count of HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions. Fails if a bf16 tensor-core instance spills or lacks
-    either instruction."""
-    import re
+# library -> (phase name, entry-function pattern, instances that must use
+# wgmma (HGMMA) and TMA (UTMALDG)); every instance must be free of spills.
+BUILD_REPORTS = {
+    "flash_attention": ("flash_build", r"flash_(tc|f32)_kernel", r"flash_tc"),
+    "decode_attention": ("decode_build", r"decode_split_kernel", None),
+    "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
+}
+
+
+def _instance_label(name: str, match) -> str:
+    """flash_tc<128>, decode_split<bf16,256>, mlstm_state: the kernel and its
+    template arguments from the mangled name."""
+    template = re.search(r"_kernelI(.*?)EEv", name)
+    args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a) or a[2:-1]
+            for a in re.findall(r"13__nv_bfloat16|^f|L[ib]\d+E",
+                                template.group(1) if template else "")]
+    base = match.group(0).replace("_kernel", "")
+    return f"{base}<{','.join(args)}>" if args else base
+
+
+def build_report(libs) -> None:
+    """Registers and spills (``-Xptxas -v``) of each kernel instance and,
+    where ``cuobjdump`` exists, its count of HGMMA (wgmma) and UTMALDG (TMA
+    load) instructions, one record per library. Fails if an instance spills,
+    or if a tensor-core instance lacks either instruction."""
     from repro_torch.kernels import _build
-    instances = {}
-    for name, body in re.findall(r"Compiling entry function '(\w+)'[^\n]*\n(.*?)"
-                                 r"(?=Compiling entry function|\Z)", _build.build_log(), re.S):
-        kind = re.search(r"flash_(tc|f32)_kernel", name)
-        if kind is None:
-            continue
-        label = f"flash_{kind.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', name))}>"
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        instances[name] = {"instance": label,
-                           "registers": int(re.search(r"Used (\d+) registers", body).group(1)),
-                           "spill_stores": int(spill.group(1)), "spill_loads": int(spill.group(2))}
+    log = _build.build_log()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    if cuobjdump.is_file():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-        for section in sass.split("Function : ")[1:]:
-            fn = section.split(None, 1)[0]
-            if fn in instances:
-                instances[fn]["HGMMA"] = section.count("HGMMA")
-                instances[fn]["UTMALDG"] = section.count("UTMALDG")
-    rows = sorted(instances.values(), key=lambda r: r["instance"])
-    emit({"phase": "flash_build", "cuobjdump": cuobjdump.is_file(), "instances": rows})
-    for r in rows:
-        if r["instance"].startswith("flash_tc") and (
-                r["spill_stores"] or r["spill_loads"] or r.get("HGMMA", 1) == 0
-                or r.get("UTMALDG", 1) == 0):
-            raise AssertionError(f"bf16 flash instance {r} spills or is off wgmma/TMA")
+    for lib, (phase, pattern, tensor_core) in BUILD_REPORTS.items():
+        instances = {}
+        for name, body in re.findall(r"Compiling entry function '(\w+)'[^\n]*\n(.*?)"
+                                     r"(?=Compiling entry function|\Z)", log, re.S):
+            kind = re.search(pattern, name)
+            if kind is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            instances[name] = {"instance": _instance_label(name, kind),
+                               "registers": int(re.search(r"Used (\d+) registers",
+                                                          body).group(1)),
+                               "spill_stores": int(spill.group(1)),
+                               "spill_loads": int(spill.group(2))}
+        if cuobjdump.is_file():
+            sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+            for section in sass.split("Function : ")[1:]:
+                fn = section.split(None, 1)[0]
+                if fn in instances:
+                    instances[fn]["HGMMA"] = section.count("HGMMA")
+                    instances[fn]["UTMALDG"] = section.count("UTMALDG")
+        rows = sorted(instances.values(), key=lambda r: r["instance"])
+        emit({"phase": phase, "cuobjdump": cuobjdump.is_file(), "instances": rows})
+        if not rows:
+            raise AssertionError(f"no kernel instance of {lib} in the build log")
+        for r in rows:
+            if r["spill_stores"] or r["spill_loads"]:
+                raise AssertionError(f"{lib} instance {r} spills")
+            if tensor_core and re.match(tensor_core, r["instance"]) and (
+                    r.get("HGMMA", 1) == 0 or r.get("UTMALDG", 1) == 0):
+                raise AssertionError(f"{lib} instance {r} is off wgmma/TMA")
 
 
 def check_flash(torch, gen, dev):
@@ -233,7 +267,20 @@ def check_decode(torch, gen, dev):
         (4, 10, 1, 256, 544, 2048, 513, torch.bfloat16, 3e-2),
         (2, 10, 1, 256, 544, 128, 544, torch.float32, 2e-5),     # window < filled
         (2, 10, 1, 256, 256, 256, None, torch.float32, 2e-5),    # wrapped ring
-        (1, 16, 1, 256, 300, 0, 300, torch.float32, 2e-5),       # 2 blocks of 8 heads
+        (1, 16, 1, 256, 300, 0, 300, torch.float32, 2e-5),       # group 16
+        # the split-L cluster kernel: empty splits, a long windowed cache, a
+        # call with no valid slot (v averaged over every slot), groups 1 to 16
+        (2, 8, 2, 128, 5, 0, 5, torch.bfloat16, 3e-2),           # L 5 < splits
+        (2, 10, 1, 256, 5, 0, 5, torch.float32, 2e-5),
+        (1, 8, 2, 128, 4096, 1024, 4096, torch.bfloat16, 3e-2),  # L 4096, window 1024
+        (1, 10, 1, 256, 4096, 1024, 4096, torch.float32, 2e-5),
+        (2, 8, 2, 128, 300, 0, 0, torch.bfloat16, 3e-2),         # no valid slot
+        (2, 10, 1, 256, 300, 0, 0, torch.float32, 2e-5),
+        (2, 4, 4, 128, 544, 0, 513, torch.bfloat16, 3e-2),       # group 1
+        (1, 7, 1, 256, 544, 0, 544, torch.bfloat16, 3e-2),       # group 7
+        (4, 10, 1, 128, 544, 0, 544, torch.bfloat16, 3e-2),      # group 10
+        (1, 16, 1, 128, 300, 0, 300, torch.bfloat16, 3e-2),      # group 16
+        (1, 16, 1, 256, 544, 0, 544, torch.bfloat16, 3e-2),
     ]
     errs = {}
     for B, H, K, hd, L, win, fill, dtype, tol in cases:
@@ -244,7 +291,7 @@ def check_decode(torch, gen, dev):
             cur = 699
             sp = torch.arange(L, device=dev) + (cur + 1 - L)
             sp = sp.roll(int((cur + 1) % L)).to(torch.int32)
-        else:
+        else:                               # fill 0: an empty cache, cur_pos -1
             cur = fill - 1
             ar = torch.arange(L, device=dev, dtype=torch.int32)
             sp = torch.where(ar < fill, ar, torch.full_like(ar, -1))
@@ -294,7 +341,7 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
     where the layers' caches and weights do not fit in L2 (16 x 4.5 MB for
     qwen2-7b, 48 x 2.2 MB for recurrentgemma-2b)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
     sp = torch.arange(L, device=dev, dtype=torch.int32)
     cur = L - 1
@@ -304,8 +351,9 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16(),
                        torch.randn(B, L, K, hd, generator=gen, device=dev).bfloat16()))
     mask = (sp >= 0).view(1, 1, 1, L)
+    plan = dops.split_plan(B, K, H // K, L, hd)
     turns = time_interleaved(torch, {
-        "kernel": lambda q, ck, cv: decode_attention(q, ck, cv, sp, cur),
+        "kernel": lambda q, ck, cv: dops.decode_attention(q, ck, cv, sp, cur),
         "library": lambda q, ck, cv: F.scaled_dot_product_attention(
             q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
             enable_gqa=True)}, inputs)
@@ -313,7 +361,17 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
                     inputs)
     flops = 4 * B * H * hd * L
     nbytes = 2 * (2 * B * H * hd + 2 * B * L * K * hd) + 4 * L
-    return interleaved_figures(turns, plain, flops, nbytes, peak)
+    return {**interleaved_figures(turns, plain, flops, nbytes, peak),
+            "split_plan": list(plan), "blocks": plan.blocks(B, K)}
+
+
+def decode_phases() -> None:
+    """Where a decode block's cycles go at both serving shapes: the kernel
+    built with its phase clocks (``kernels/decode_attention/phases.py``)."""
+    from repro_torch.kernels.decode_attention import phases
+    lib = phases.build()
+    for model, shape in phases.SHAPES.items():
+        emit({"phase": "decode_phases", "model": model, **phases.measure(lib, *shape)})
 
 
 def _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype):
@@ -336,6 +394,9 @@ def check_mlstm(torch, gen, dev):
         (4, 512, 4, 512, 1024, 256, f32),
         (1, 511, 4, 512, 1024, 256, bf16),     # chunk 73
         (1, 511, 2, 128, 96, 256, f32),        # chunk 73, ragged dv tile
+        (1, 511, 2, 128, 96, 256, bf16),
+        (2, 256, 2, 64, 96, 64, bf16),         # ragged dv tile, 4 chunks
+        (1, 192, 2, 128, 256, 256, bf16),      # one chunk: no interior state
         (1, 256, 2, 128, 256, 128, f32),       # tests/test_kernels.py
         (2, 512, 4, 128, 128, 128, f32),
         (1, 256, 2, 256, 512, 64, f32),
@@ -365,12 +426,15 @@ def check_mlstm(torch, gen, dev):
 def measure_mlstm(torch, gen, dev, peak):
     """xlstm-1.3b prefill shape, bf16, with the final state as the model asks
     for it. Inputs are fresh projections in the model, so they are timed warm
-    in L2 (34 MB of q/k/v)."""
+    in L2 (34 MB of q/k/v). The two kernels of a call are short enough that
+    the host's per-call work matters, so the call is timed as a CUDA graph
+    (``time_interleaved``) with no library yardstick beside it."""
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_reference
     B, S, H, dqk, dv, c = 4, 512, 4, 512, 1024, 256
     inputs = [_mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, torch.bfloat16)]
-    kernel = time_ms(torch, lambda *a: mlstm_chunk(*a, return_state=True), inputs)
+    turns = time_interleaved(torch, {"kernel": lambda *a: mlstm_chunk(*a, return_state=True)},
+                             inputs)["kernel"]
     plain = time_ms(torch, lambda *a: mlstm_chunk_reference(*a, return_state=True),
                     inputs)
     pairs = c * (c + 1) // 2                       # causal (j, l) pairs per chunk
@@ -381,7 +445,8 @@ def measure_mlstm(torch, gen, dev, peak):
     nbytes = (2 * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out (bf16)
               + 4 * 2 * B * S * H                  # the two gates (f32)
               + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
-    return measured(kernel, plain, None, flops, nbytes, peak[0], peak[1])
+    return {**measured(turns["median"], plain, None, flops, nbytes, peak[0], peak[1]),
+            "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"]}
 
 
 def _rglru_inputs(torch, gen, dev, B, S, W, dtype):
@@ -595,20 +660,27 @@ def serve_full_width(torch, arch: str):
     return launches, report
 
 
+PORT_KERNELS = r"flash_(tc|f32)_kernel|decode_split_kernel|mlstm_\w+_kernel|rglru_scan_kernel"
+
+
 def _device_breakdown(torch, prof, wall_s: float, steps: int) -> dict:
     """Kernel time by name from a profiler trace, per step, and the device's
-    idle share of the profiled wall time."""
+    idle share of the profiled wall time; the port's own kernels are listed
+    whatever their rank."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total  # noqa: E731
     busy_ms = sum(us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=us, reverse=True)[:8]
+    port = [e for e in kernels if re.search(PORT_KERNELS, e.key)]
+    row = lambda e: {"name": e.key[:80], "ms_per_step": us(e) / 1e3 / steps,  # noqa: E731
+                     "calls_per_step": e.count / steps}
     return {"wall_ms_per_step": wall_s * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms / steps if kernels else None,
             "idle_share": 1 - busy_ms / (wall_s * 1e3) if kernels else None,
             "kernels_launched_per_step": sum(e.count for e in kernels) / steps,
-            "top_kernels": [{"name": e.key[:80], "ms_per_step": us(e) / 1e3 / steps,
-                             "calls_per_step": e.count / steps} for e in top]}
+            "top_kernels": [row(e) for e in top],
+            "port_kernels": [row(e) for e in port]}
 
 
 def profile_serving(torch, pool):
@@ -698,7 +770,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(libs)})
     print(_build.build_log().strip(), flush=True)
-    flash_build_report(libs["flash_attention"])
+    build_report(libs)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -710,6 +782,7 @@ def main() -> int:
     flash_rg_t = measure_flash(torch, gen, dev, peak, 4, 512, 10, 1, 256, window=2048)
     decode_t = measure_decode(torch, gen, dev, peak, 4, 28, 4, 544, 128, n_caches=16)
     decode_rg_t = measure_decode(torch, gen, dev, peak, 4, 10, 1, 544, 256, n_caches=48)
+    decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
     for cfg, S in small_configs():

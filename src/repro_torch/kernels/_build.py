@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them.
 
 Every ``<kernel>/csrc/*.cu`` of this package is compiled for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The output
-directory ``build/repro_torch_kernels/<hash>/`` (under the repository root,
-ignored by git) is keyed by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused. All sources compile in
+shared library with a plain C interface, loaded with ``ctypes``. Sources
+include shared headers (``*.cuh``, e.g. ``common/hopper.cuh``) relative to
+this directory. The output directory ``build/repro_torch_kernels/<hash>/``
+(under the repository root, ignored by git) is keyed by a hash of the
+sources, the headers and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. All sources compile in
 parallel, one ``nvcc`` each. A failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
@@ -30,6 +32,11 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(_PKG.glob("*/csrc/*.cu"))}
 
 
+def headers() -> Dict[str, Path]:
+    """Every shared header (``*.cuh``) under this package, by relative path."""
+    return {str(p.relative_to(_PKG)): p for p in sorted(_PKG.rglob("*.cuh"))}
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
@@ -44,9 +51,15 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def command(nvcc: str, name: str, out: Path) -> list:
+    """The nvcc command that builds kernel ``name`` into ``out``; headers are
+    included relative to this package."""
+    return [nvcc, *NVCC_FLAGS, "-I", str(_PKG), "-o", str(out), str(sources()[name])]
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, path in sources().items():
+    for name, path in (*sources().items(), *headers().items()):
         h.update(name.encode())
         h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -64,9 +77,9 @@ def build_all() -> Dict[str, Path]:
     procs = {}
     for name in todo:
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
         procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            command(nvcc, name, tmp), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
     errors = []
     for name, (tmp, proc) in procs.items():
         stdout, stderr = proc.communicate()

@@ -6,11 +6,11 @@ version (``ref.py``). A CUDA tensor launches ``csrc/flash_attention.cu``
 (head_dim 128 or 256) or raises:
 
 * bfloat16 takes the tensor-core kernel: ``wgmma`` products, K/V tiles fed by
-  TMA through a ring of shared-memory stages. Its tensor maps are planned here
-  (``tensor_map_plan``, cached per shape and strides; the base address is
-  checked on every call); a layout TMA cannot take (a byte stride that is
-  not a multiple of 16, a base that is not 16-byte aligned, a strided head
-  dim) raises ``ValueError``.
+  TMA through a ring of shared-memory stages. Its tensor maps are planned by
+  ``tensor_map_plan`` (``kernels/_tma.py``, cached per shape and strides; the
+  base address is checked on every call); a layout TMA cannot take (a byte
+  stride that is not a multiple of 16, a base that is not 16-byte aligned, a
+  strided head dim) raises ``ValueError``.
 * float32 takes the CUDA-core kernel (float32 FMAs): ``wgmma`` in float32 is
   TF32, which would not hold the float32 tolerance.
 
@@ -21,67 +21,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tma import BOX_COLS, TensorMapPlan, tensor_map_plan  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
 HEAD_DIMS = (128, 256)
 BLOCK_Q = 64         # query rows a block: wgmma's M (BM in the source)
 BLOCK_K = 64         # keys a K/V tile (BK in the source)
-BOX_COLS = 64        # bf16 columns in one 128-byte swizzle row: a box's inner extent
-
-
-class TensorMapPlan(NamedTuple):
-    """A 4-D TMA tensor map over a ``[B, S, heads, hd]`` bf16 tensor."""
-    dims: Tuple[int, int, int, int]       # {hd, heads, S, B}, innermost first
-    strides: Tuple[int, int, int]         # bytes, of dims heads, S, B
-    box: Tuple[int, int, int, int]        # {64, 1, rows, 1}
-
-    def values(self) -> Tuple[int, ...]:
-        """The 11 int64 values the kernel's entry point reads."""
-        return self.dims + self.strides + self.box
-
-
-@functools.lru_cache(maxsize=256)
-def _plan(shape: Tuple[int, ...], stride: Tuple[int, ...], dtype: torch.dtype,
-          rows: int) -> TensorMapPlan:
-    if len(shape) != 4:
-        raise ValueError(f"expected [B, S, heads, hd], got {shape}")
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the TMA path takes bfloat16, got {dtype}")
-    B, S, heads, hd = shape
-    if hd % BOX_COLS:
-        raise ValueError(f"head_dim {hd} is not a multiple of {BOX_COLS}")
-    if not 0 < rows <= 256:
-        raise ValueError(f"box rows {rows} outside 1..256")
-    if stride[3] != 1:
-        raise ValueError(f"TMA needs a contiguous head dim, got stride {stride[3]}")
-    size = dtype.itemsize
-    strides, prev = [], hd * size            # bytes spanned by the inner dims
-    for name, n, st in (("head", heads, stride[2]), ("seq", S, stride[1]),
-                        ("batch", B, stride[0])):
-        nbytes = st * size if n > 1 else prev
-        if nbytes % 16 or not 0 < nbytes < 2 ** 40:
-            raise ValueError(f"TMA needs byte strides that are positive multiples "
-                             f"of 16, got {nbytes} for the {name} dim")
-        strides.append(nbytes)
-        prev = nbytes * n
-    return TensorMapPlan((hd, heads, S, B), tuple(strides), (BOX_COLS, 1, rows, 1))
-
-
-def tensor_map_plan(t: torch.Tensor, rows: int) -> TensorMapPlan:
-    """The tensor map the bf16 kernel builds over ``t`` [B, S, heads, hd],
-    loading boxes of ``rows`` rows by 64 columns. Raises ``ValueError`` where
-    TMA cannot take the layout. A dim of size 1 gets its contiguous stride:
-    its coordinate is always 0."""
-    plan = _plan(tuple(t.shape), t.stride(), t.dtype, rows)
-    if t.data_ptr() % 16:
-        raise ValueError(f"TMA needs a 16-byte aligned base, got address "
-                         f"{t.data_ptr():#x}")
-    return plan
 
 
 @functools.lru_cache(maxsize=256)

@@ -180,6 +180,61 @@ def test_decode_kernel_head_dim_256_matches_plain(cuda, B, H, K, L, win, fill, d
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+def _decode_case(gen, B, H, K, hd, L, dtype):
+    return (_randn(gen, B, H, hd, dtype=dtype), _randn(gen, B, L, K, hd, dtype=dtype),
+            _randn(gen, B, L, K, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("case", ["L 5 < splits", "L 4096, window 1024", "no valid slot",
+                                  "G 1", "G 7", "G 10", "G 16"])
+def test_decode_split_kernel_edges(cuda, case, hd, dtype):
+    """The split-L cluster kernel: empty splits, long windowed caches, a call
+    with no valid slot (v averaged over all slots, as the plain version and
+    the JAX kernel give), and groups of 1 to 16 heads."""
+    from repro_torch.kernels.decode_attention import ops
+    B, H, K, L, win, fill = {
+        "L 5 < splits": (2, 8, 2, 5, 0, 5),
+        "L 4096, window 1024": (1, 8, 2, 4096, 1024, 4096),
+        "no valid slot": (2, 8, 2, 300, 0, 0),
+        "G 1": (2, 4, 4, 544, 0, 513), "G 7": (1, 28, 4, 544, 0, 544),
+        "G 10": (4, 10, 1, 544, 2048, 513), "G 16": (1, 16, 1, 300, 0, 300),
+    }[case]
+    q, ck, cv = _decode_case(cuda, B, H, K, hd, L, dtype)
+    ar = torch.arange(L, device="cuda", dtype=torch.int32)
+    sp = torch.where(ar < fill, ar, torch.full_like(ar, -1))
+    cur = max(fill - 1, 0)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, ck, cv, sp, cur, window=win)
+    ref = ops.decode_attention_reference(q, ck, cv, sp, cur, window=win)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("plan", [(2, 8, 68), (2, 1, 544), (5, 3, 182), (10, 4, 136)])
+def test_decode_kernel_takes_any_split_plan(cuda, plan):
+    """recurrentgemma-2b's decode shape under its split plan, one block per
+    (batch, kv head, head block), an odd cluster of 3 and one head a block."""
+    from repro_torch.kernels.decode_attention import ops
+    q, ck, cv = _decode_case(cuda, 4, 10, 1, 256, 544, torch.bfloat16)
+    sp = torch.arange(544, device="cuda", dtype=torch.int32)
+    out = ops._launch(q, ck, cv, sp, 543, 0, ops.SplitPlan(*plan))
+    ref = ops.decode_attention_reference(q, ck, cv, sp, 543)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+
+
+def test_decode_kernel_rejects_unaligned_cache_rows(cuda):
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    q = _randn(cuda, 1, 4, 128, dtype=torch.bfloat16)
+    c = _randn(cuda, 1, 16, 2, 129, dtype=torch.bfloat16)[..., :128]   # 258-byte rows
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention(q, c, c, torch.arange(16, device="cuda", dtype=torch.int32), 15)
+
+
 def _rglru_inputs(gen, B, S, W, dtype):
     """As the JAX kernel test draws them: a = sigmoid(N) * 0.2 + 0.79,
     b = N * 0.1, h0 = N."""
@@ -276,6 +331,8 @@ def _rel(out, ref):
     (1, 256, 2, 256, 512, 64),
     (4, 512, 4, 512, 1024, 256),                                # xlstm-1.3b prefill
     (1, 511, 2, 128, 96, 256),                                  # chunk 73, ragged dv
+    (2, 256, 2, 64, 96, 64), (1, 511, 4, 512, 1024, 256),       # ragged dv; chunk 73
+    (1, 192, 2, 128, 256, 256),                                 # one chunk: no interior state
 ])
 def test_mlstm_kernel_matches_plain(cuda, B, S, H, dqk, dv, chunk, dtype):
     """h at rel 1e-4 (f32) or 3e-2 of max|h| (bf16, one rounding of h); the
@@ -307,3 +364,9 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
     big = _mlstm_inputs(cuda, 1, 16, 1, 640, 64, torch.float32)
     with pytest.raises(ValueError):
         mlstm_chunk(*big)                                       # dqk > 512
+    narrow = _mlstm_inputs(cuda, 1, 64, 2, 32, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="at least 64"):
+        mlstm_chunk(*narrow)                                    # bf16 dqk < 64
+    odd = _mlstm_inputs(cuda, 1, 64, 2, 128, 100, torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        mlstm_chunk(*odd)                                       # 200-byte v rows
