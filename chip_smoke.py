@@ -7,23 +7,26 @@ Phases, each of which fails the run on any error:
 
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
-   flash, decode and mLSTM instance its registers and spills (``-Xptxas -v``)
+   flash, decode, mLSTM and scan instance its registers and spills
+   (``-Xptxas -v``)
    and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
    that spills, or a tensor-core instance -- bf16 flash, the mLSTM state and
    output passes -- that lacks either, fails the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
-   (attention at head_dim 128 and 256, bf16 3e-2, float32 2e-5, bf16 flash
-   also at the edges of its tiles and on slices of a fused qkv, decode also
-   with empty splits, a long windowed cache, no valid slot and groups of 1
-   to 16; mLSTM: h and the final state, bf16 3e-2 of max|h| and state rel
-   1e-3, float32 rel 1e-4, ragged dv tiles and chunk 73; RG-LRU scan:
-   float32 2e-5, bf16 3e-2), and timed beside its plain version, one
-   PyTorch call computing the same function where there is one
-   (``F.scaled_dot_product_attention``; none for the mLSTM or the scan: a
-   yardstick the port never calls) and its bound (bytes over HBM rate,
-   operations over the peak rate of their type). The attention kernels and
-   SDPA, and the mLSTM call, are timed as CUDA graphs of 20 calls (device
+   (attention at head_dim 16, 64, 128 and 256, bf16 3e-2, float32 2e-5,
+   bf16 flash also at the edges of its tiles and on slices of a fused qkv,
+   decode also with empty splits, a long windowed cache, no valid slot and
+   groups of 1 to 16; mLSTM: h and the final state, bf16 3e-2 of max|h| and
+   state rel 1e-3, float32 rel 1e-4, ragged dv tiles and chunk 73; RG-LRU
+   scan: float32 2e-5, bf16 3e-2, also S shorter than a chunk, S = 1, S not
+   a multiple of the cluster, several rounds, ragged channel tiles, a chunk
+   with a = 0, strided inputs staged by bulk copies and by plain loads),
+   and timed beside its plain version, one PyTorch call computing the same
+   function where there is one (``F.scaled_dot_product_attention``; none
+   for the mLSTM or the scan: a yardstick the port never calls) and its
+   bound (bytes over HBM rate, operations over the peak rate of their
+   type). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
    time, no host gaps) in 7 turns of alternating order: the median, with
    the min and max and the time of calls made one by one from the host
    (``eager_ms``). The decode row names its split plan and grid size; the
@@ -34,12 +37,15 @@ Phases, each of which fails the run on any error:
    model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
    serve the same prompts on the card and on the CPU; logits and greedy
    tokens must agree;
-4. serving at full width: ``repro_torch.launch.serve`` serves 8 requests of
-   qwen2-7b, then of xlstm-1.3b, then of recurrentgemma-2b (published
-   widths, random bf16 weights from a seed) on cuda:0; before each, every
-   launch counter is zeroed, and the plain attention, mLSTM and scan
-   versions are made to raise until it ends, so each run proves that every
-   attention, mLSTM or RG-LRU prefill call went through the kernels;
+4. serving: ``repro_torch.launch.serve`` first with its defaults (the card,
+   reduced float32 models at head_dim 16: qwen2-7b, recurrentgemma-2b and
+   xlstm-1.3b, 32 requests each), whose greedy tokens must equal the same
+   run's with ``--device cpu``; then 8 requests of qwen2-7b, of xlstm-1.3b
+   and of recurrentgemma-2b at their published widths (random bf16 weights
+   from a seed) on cuda:0. Before each run every launch counter is zeroed,
+   and the plain attention, mLSTM and scan versions are made to raise until
+   it ends, so each run proves that every attention, mLSTM or RG-LRU
+   prefill call went through the kernels;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
    each served model: kernel time by name (the top eight and every kernel of
    the port) and the device's idle share; for xlstm-1.3b also the wall time
@@ -142,16 +148,17 @@ def max_err(torch, out, ref) -> float:
 # library -> (phase name, entry-function pattern, instances that must use
 # wgmma (HGMMA) and TMA (UTMALDG)); every instance must be free of spills.
 BUILD_REPORTS = {
-    "flash_attention": ("flash_build", r"flash_(tc|f32)_kernel", r"flash_tc"),
+    "flash_attention": ("flash_build", r"flash_(tc|cc)_kernel", r"flash_tc"),
     "decode_attention": ("decode_build", r"decode_split_kernel", None),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
+    "rglru_scan": ("scan_build", r"rglru_scan_kernel", None),
 }
 
 
 def _instance_label(name: str, match) -> str:
-    """flash_tc<128>, decode_split<bf16,256>, mlstm_state: the kernel and its
-    template arguments from the mangled name."""
-    template = re.search(r"_kernelI(.*?)EEv", name)
+    """flash_tc<128>, decode_split<bf16,256>, rglru_scan<f32>, mlstm_state:
+    the kernel and its template arguments from the mangled name."""
+    template = re.search(r"_kernelI(.*?)Ev", name)
     args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a) or a[2:-1]
             for a in re.findall(r"13__nv_bfloat16|^f|L[ib]\d+E",
                                 template.group(1) if template else "")]
@@ -228,6 +235,20 @@ def check_flash(torch, gen, dev):
         (1, 300, 10, 1, 256, 65, True, torch.bfloat16, 3e-2),
         (1, 500, 4, 2, 256, 127, True, torch.bfloat16, 3e-2),
         (2, 300, 8, 2, 128, 0, True, "fused", 3e-2),             # slices of a fused qkv
+        # head_dim 16 (every reduced config; bf16 on the CUDA-core kernel) and
+        # 64 (musicgen-large; bf16 on the tensor-core kernel, one box a row)
+        (8, 8, 4, 2, 16, 0, True, torch.float32, 2e-5),          # reduced qwen2-7b prefill
+        (8, 8, 4, 1, 16, 16, True, torch.float32, 2e-5),         # reduced recurrentgemma-2b
+        (2, 500, 28, 4, 16, 0, True, torch.float32, 2e-5),
+        (1, 300, 10, 1, 16, 65, True, torch.bfloat16, 3e-2),
+        (2, 130, 4, 2, 16, 0, False, torch.bfloat16, 3e-2),
+        (4, 512, 32, 32, 64, 0, True, torch.bfloat16, 3e-2),     # musicgen-large's heads
+        (2, 500, 28, 4, 64, 0, True, torch.bfloat16, 3e-2),
+        (1, 300, 10, 1, 64, 65, True, torch.bfloat16, 3e-2),
+        (2, 130, 4, 2, 64, 0, False, torch.bfloat16, 3e-2),
+        (2, 300, 8, 2, 64, 0, True, "fused", 3e-2),
+        (2, 500, 28, 4, 64, 0, True, torch.float32, 2e-5),
+        (1, 256, 4, 4, 64, 63, True, torch.float32, 2e-5),
     ]
     errs = {}
     for B, S, H, K, hd, win, causal, dtype, tol in cases:
@@ -281,6 +302,16 @@ def check_decode(torch, gen, dev):
         (4, 10, 1, 128, 544, 0, 544, torch.bfloat16, 3e-2),      # group 10
         (1, 16, 1, 128, 300, 0, 300, torch.bfloat16, 3e-2),      # group 16
         (1, 16, 1, 256, 544, 0, 544, torch.bfloat16, 3e-2),
+        # head_dim 16 (a bf16 row is 2 lanes' chunks) and 64
+        (8, 4, 2, 16, 16, 0, 9, torch.float32, 2e-5),            # reduced qwen2-7b decode
+        (8, 4, 1, 16, 16, 16, 16, torch.float32, 2e-5),          # reduced recurrentgemma-2b
+        (4, 28, 4, 16, 544, 0, 513, torch.bfloat16, 3e-2),
+        (2, 8, 2, 16, 300, 0, 0, torch.bfloat16, 3e-2),          # no valid slot
+        (1, 16, 1, 16, 4096, 1024, 4096, torch.float32, 2e-5),   # group 16, long window
+        (4, 32, 32, 64, 544, 0, 544, torch.bfloat16, 3e-2),      # musicgen-large's heads
+        (4, 10, 1, 64, 544, 2048, 513, torch.bfloat16, 3e-2),
+        (2, 8, 2, 64, 5, 0, 5, torch.float32, 2e-5),             # L 5 < splits
+        (1, 16, 1, 64, 300, 0, 300, torch.float32, 2e-5),
     ]
     errs = {}
     for B, H, K, hd, L, win, fill, dtype, tol in cases:
@@ -385,6 +416,22 @@ def _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, dtype):
     return q, k, v, il, fl
 
 
+def launcher_default_shapes():
+    """The mLSTM's (B, S, H, dqk, dv, chunk) and the scan's (B, S, W) in the
+    prefill of ``python -m repro_torch.launch.serve`` at its defaults
+    (``serve_reduced_defaults``): ``--max-batch`` prompts of
+    ``--prompt-len`` tokens through the reduced xlstm-1.3b and
+    recurrentgemma-2b."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import build_parser
+    from repro_torch.models.xlstm import PREFILL_CHUNK, mlstm_dims
+    args = build_parser().parse_args([])
+    B, S = args.max_batch, args.prompt_len
+    _, H, dqk, dv = mlstm_dims(reduced_config(get_config("xlstm-1.3b")))
+    W = reduced_config(get_config("recurrentgemma-2b")).lru_width
+    return (B, S, H, dqk, dv, PREFILL_CHUNK), (B, S, W)
+
+
 def check_mlstm(torch, gen, dev):
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import chunk_size, mlstm_chunk_reference
@@ -392,6 +439,7 @@ def check_mlstm(torch, gen, dev):
     cases = [  # (B, S, H, dqk, dv, chunk, dtype); h tol x max|h|, state rel tol
         (4, 512, 4, 512, 1024, 256, bf16),     # xlstm-1.3b prefill
         (4, 512, 4, 512, 1024, 256, f32),
+        (*launcher_default_shapes()[0], f32),  # reduced xlstm-1.3b, launcher defaults
         (1, 511, 4, 512, 1024, 256, bf16),     # chunk 73
         (1, 511, 2, 128, 96, 256, f32),        # chunk 73, ragged dv tile
         (1, 511, 2, 128, 96, 256, bf16),
@@ -459,26 +507,45 @@ def _rglru_inputs(torch, gen, dev, B, S, W, dtype):
 
 
 def check_rglru(torch, gen, dev):
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ops import bulk_copies, rglru_scan, scan_plan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (B, S, W, dtype, tol)
-        (4, 512, 2560, f32, 2e-5),           # recurrentgemma-2b prefill
-        (2, 512, 512, f32, 2e-5),            # tests/test_kernels.py
-        (1, 256, 1024, f32, 2e-5),
-        (3, 128, 512, f32, 2e-5),
-        (4, 512, 2560, bf16, 3e-2),
-        (1, 511, 1000, f32, 2e-5),           # ragged S and W
+    cases = [  # (B, S, W, dtype, tol, variant)
+        (4, 512, 2560, f32, 2e-5, None),           # recurrentgemma-2b prefill
+        (*launcher_default_shapes()[1], f32, 2e-5, None),  # reduced, launcher defaults
+        (2, 512, 512, f32, 2e-5, None),            # tests/test_kernels.py
+        (1, 256, 1024, f32, 2e-5, None),
+        (3, 128, 512, f32, 2e-5, None),
+        (4, 512, 2560, bf16, 3e-2, None),
+        (1, 511, 1000, f32, 2e-5, None),           # ragged S and W
+        # the split-S cluster kernel's edges (scan_plan: chunks of <= 64 steps,
+        # <= 8 a round): S shorter than a chunk, S = 1, S not a multiple of
+        # the cluster, several rounds, ragged channel tiles, a chunk with a =
+        # 0, non-zero h0 with strided a and b (bulk copies and plain loads)
+        (2, 10, 256, f32, 2e-5, None), (3, 1, 128, f32, 2e-5, None),
+        (3, 1, 128, bf16, 3e-2, None), (2, 100, 512, f32, 2e-5, None),
+        (2, 1000, 192, f32, 2e-5, None), (1, 5000, 64, bf16, 3e-2, None),
+        (2, 300, 33, f32, 2e-5, None), (2, 511, 1000, bf16, 3e-2, None),
+        (2, 512, 256, f32, 2e-5, "zero chunk"), (2, 512, 256, bf16, 3e-2, "zero chunk"),
+        (3, 200, 96, f32, 2e-5, "strided"), (3, 200, 90, f32, 2e-5, "strided"),
+        (3, 200, 96, bf16, 3e-2, "strided"),
     ]
     errs = []
-    for B, S, W, dtype, tol in cases:
+    for B, S, W, dtype, tol, variant in cases:
         a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, dtype)
+        if variant == "zero chunk":                 # chunk 3's product of a is 0
+            c = scan_plan(S).chunk
+            a[:, 3 * c:4 * c] = 0
+        if variant == "strided":                    # a [S, B, W], b [B, S, 2W] viewed
+            a = a.transpose(0, 1).contiguous().transpose(0, 1)
+            b = torch.cat([b, b], dim=2)[..., :W]
         out = rglru_scan(a, b, h0)
         ref = rglru_scan_reference(a, b, h0)
         torch.cuda.synchronize()
         err = max_err(torch, out, ref)
         emit({"phase": "check", "kernel": "rglru_scan", "shape": [B, S, W],
-              "dtype": str(dtype), "max_abs_err": err, "tol": tol})
+              "dtype": str(dtype), "variant": variant, "plan": list(scan_plan(S)),
+              "bulk_copies": bulk_copies(a, b), "max_abs_err": err, "tol": tol})
         if not (err < tol and out.dtype == dtype):
             raise AssertionError(f"rglru_scan disagrees: {err} >= {tol}")
         errs.append(err)
@@ -496,17 +563,29 @@ def check_rglru(torch, gen, dev):
 
 def measure_rglru(torch, gen, dev, peak):
     """recurrentgemma-2b prefill shape: a, b float32 [4, 512, 2560] from a zero
-    state, as the model calls it. 63 MB of a, b and h exceed L2."""
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    state, as the model calls it, timed as the attention kernels are
+    (``time_interleaved``: CUDA graphs of 20 calls, 7 turns). 63 MB of a, b
+    and h exceed the 50 MB L2, so ``ms`` times one set of inputs. Whether
+    some of it stays in L2 from one call to the next shows in
+    ``rotated_ms``: the same calls, in the same turns, rotating over three
+    sets (189 MB). No library yardstick: no single PyTorch call computes a
+    linear recurrence."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, scan_plan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
     B, S, W = 4, 512, 2560
-    a, b, _ = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
-    inputs = [(a, b, torch.zeros(B, W, device=dev))]
-    kernel = time_ms(torch, rglru_scan, inputs)
-    plain = time_ms(torch, rglru_scan_reference, inputs, iters=5)
+    inputs = [(*_rglru_inputs(torch, gen, dev, B, S, W, torch.float32)[:2],
+               torch.zeros(B, W, device=dev)) for _ in range(3)]
+    turns = time_interleaved(torch, {"kernel": lambda *_: rglru_scan(*inputs[0]),
+                                     "rotated": rglru_scan}, inputs)
+    plain = time_ms(torch, rglru_scan_reference, inputs[:1], iters=5)
     flops = 2 * B * S * W                          # one FMA a step (float32)
     nbytes = 4 * (3 * B * S * W + B * W)           # a, b, h0 in, h out
-    return measured(kernel, plain, None, flops, nbytes, peak[2], peak[1])
+    plan = scan_plan(S)
+    one, rotated = turns["kernel"], turns["rotated"]
+    return {**measured(one["median"], plain, None, flops, nbytes, peak[2], peak[1]),
+            "min_max_ms": one["min_max"], "eager_ms": one["eager_ms"],
+            "rotated_ms": rotated["median"], "rotated_min_max_ms": rotated["min_max"],
+            "scan_plan": list(plan), "blocks": plan.clusters * -(-W // 64) * B}
 
 
 def measured(kernel, plain, library, flops, nbytes, flops_peak, bw_peak) -> dict:
@@ -538,7 +617,7 @@ def interleaved_figures(turns, plain, flops, nbytes, peak) -> dict:
 def kernel_row(name, source, replaces, err, figures, launches, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "max_abs_err": err, **figures,
-            "launches_by_arch": launches, **extra}
+            "launches_by_run": launches, **extra}
 
 
 def shape_figures(shape, err, figures):
@@ -593,10 +672,11 @@ def small_configs():
                                                    **f32), 40)]
 
 
-def serve_full_width(torch, arch: str):
-    """Serve 8 requests of ``arch`` at its published widths. Every launch
-    counter is zeroed just before and read just after; the plain versions
-    raise meanwhile."""
+def serve_counted(torch, argv):
+    """Run the launcher (``repro_torch.launch.serve``) with ``argv``. Every
+    launch counter is zeroed just before and read just after; the plain
+    versions raise meanwhile. Checks the launch counts against the model's
+    layers and returns (launches, report)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mlstm_chunk import ops as mops
@@ -622,24 +702,40 @@ def serve_full_width(torch, arch: str):
     for fn in wrappers.values():
         fn.launches = 0
     try:
-        t0 = time.perf_counter()
-        report = serve.run(SERVE_ARGV + ["--arch", arch])
-        wall = time.perf_counter() - t0
+        report = serve.run(argv)
     finally:
         launches = {name: fn.launches for name, fn in wrappers.items()}
         for name, (mod, attr) in plains.items():
             setattr(mod, attr, saved[name])
+    args = serve.build_parser().parse_args(argv)
     cfg, rounds = report["cfg"], report["rounds"]
-    done = report["completed"]
-    ok_tokens = len(done) == 8 and all(
-        r.done is not None and len(r.done) == 32 and (r.done >= 0).all()
-        and (r.done < cfg.vocab_size).all() for r in done)
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("attn", "local") for k in kinds)
     want = {"flash_attention": rounds * n_attn,
-            "decode_attention": rounds * n_attn * 31,
+            "decode_attention": rounds * n_attn * (args.max_new - 1),
             "mlstm_chunk": rounds * kinds.count("mlstm"),
             "rglru_scan": rounds * kinds.count("rglru")}
+    done = report["completed"]
+    ok_tokens = len(done) == args.requests and all(
+        r.done is not None and len(r.done) == args.max_new and (r.done >= 0).all()
+        and (r.done < cfg.vocab_size).all() for r in done)
+    if not ok_tokens:
+        raise AssertionError(f"not every request came back with {args.max_new} "
+                             "in-vocab tokens")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not report["devices"][0].startswith("cuda"):
+        raise AssertionError(f"served on {report['devices']}, not the card")
+    return launches, report
+
+
+def serve_full_width(torch, arch: str):
+    """Serve 8 requests of ``arch`` at its published widths on cuda:0,
+    counted (``serve_counted``)."""
+    t0 = time.perf_counter()
+    launches, report = serve_counted(torch, SERVE_ARGV + ["--arch", arch])
+    wall = time.perf_counter() - t0
+    cfg, rounds, done = report["cfg"], report["rounds"], report["completed"]
     t = report["timings"]
     emit({"phase": "serve", "arch": cfg.name, "d_model": cfg.d_model,
           "layers": cfg.num_layers, "devices": report["devices"], "rounds": rounds,
@@ -650,17 +746,38 @@ def serve_full_width(torch, arch: str):
           "decode_ms_per_step": [x["decode_s"] * 1e3 / 31 for x in t],
           "wall_s_with_weight_init": wall,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "expected_launches": want, "tokens_ok": ok_tokens})
-    if not ok_tokens:
-        raise AssertionError("not every request came back with 32 in-vocab tokens")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+          "launches": launches, "tokens_ok": True})
     if not report["devices"] == ["cuda:0"]:
         raise AssertionError(f"served on {report['devices']}, not cuda:0")
     return launches, report
 
 
-PORT_KERNELS = r"flash_(tc|f32)_kernel|decode_split_kernel|mlstm_\w+_kernel|rglru_scan_kernel"
+def serve_reduced_defaults(torch, arch: str):
+    """``python -m repro_torch.launch.serve --arch <arch>`` with every other
+    option at its default: the card, a reduced float32 model (head_dim 16;
+    xlstm-1.3b has no attention, so its mLSTM kernel runs at the reduced
+    widths), 32 requests of 8 prompt and 8 new tokens. Counted
+    (``serve_counted``); the greedy tokens must equal those of the same run
+    with ``--device cpu``, on the plain versions."""
+    import numpy as np
+    from repro_torch.launch import serve
+    launches, card = serve_counted(torch, ["--arch", arch])
+    cpu = serve.run(["--arch", arch, "--device", "cpu"])
+    got = {r.req_id: r.done for r in card["completed"]}
+    want = {r.req_id: r.done for r in cpu["completed"]}
+    same = got.keys() == want.keys() and all(np.array_equal(got[i], want[i]) for i in want)
+    cfg = card["cfg"]
+    emit({"phase": "serve_reduced_defaults", "arch": cfg.name, "head_dim": cfg.head_dim,
+          "d_model": cfg.d_model, "layers": cfg.num_layers, "dtype": cfg.param_dtype,
+          "devices": card["devices"], "rounds": card["rounds"], "requests": len(got),
+          "launches": launches, "tokens_equal_cpu_run": same})
+    if not same:
+        raise AssertionError(f"{arch}: the default serve on the card and on the CPU "
+                             "gave different tokens")
+    return launches
+
+
+PORT_KERNELS = r"flash_(tc|cc)_kernel|decode_split_kernel|mlstm_\w+_kernel|rglru_scan_kernel"
 
 
 def _device_breakdown(torch, prof, wall_s: float, steps: int) -> dict:
@@ -788,7 +905,11 @@ def main() -> int:
     for cfg, S in small_configs():
         check_small_model(torch, dev, cfg, S)
 
-    launches = {}                               # kernel -> {arch: launches}
+    launches = {}                               # kernel -> {run: launches}
+    for arch in ("qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b"):
+        for kernel, n in serve_reduced_defaults(torch, arch).items():
+            if n:
+                launches.setdefault(kernel, {})[f"{arch}, reduced (launcher defaults)"] = n
     for arch in ("qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b"):
         served, report = serve_full_width(torch, arch)
         for kernel, n in served.items():
@@ -805,12 +926,14 @@ def main() -> int:
                    "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:80",
                    flash_err[128], flash_t, launches["flash_attention"],
                    head_dim_256=shape_figures([4, 512, 10, 1, 256], flash_err[256],
-                                              flash_rg_t)),
+                                              flash_rg_t),
+                   max_abs_err_head_dim_16_64=[flash_err[16], flash_err[64]]),
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
                    decode_err[128], decode_t, launches["decode_attention"],
                    head_dim_256=shape_figures([4, 10, 1, 544, 256], decode_err[256],
-                                              decode_rg_t)),
+                                              decode_rg_t),
+                   max_abs_err_head_dim_16_64=[decode_err[16], decode_err[64]]),
         kernel_row("mlstm_chunk", "src/repro_torch/kernels/mlstm_chunk/csrc/"
                    "mlstm_chunk.cu", "src/repro/kernels/mlstm_chunk/kernel.py:89",
                    mlstm_err, mlstm_t, launches["mlstm_chunk"]),

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, mlstm_chunk.cu): mbarriers, 4-D TMA loads and the
-// tensor-map encoder, wgmma fences and shared-memory descriptors, and the
-// m64nNk16 bf16 products the kernels use. Include as "common/hopper.cuh";
-// kernels/_build.py passes -I for the kernels directory and hashes every
-// header with the sources, so an edited header rebuilds every kernel.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, mlstm_chunk.cu, rglru_scan.cu): mbarriers, 4-D TMA
+// loads and the tensor-map encoder, 1-D bulk copies, wgmma fences and
+// shared-memory descriptors, and the m64nNk16 bf16 products the kernels
+// use. Include as "common/hopper.cuh"; kernels/_build.py passes -I for the
+// kernels directory and hashes every header with the sources, so an edited
+// header rebuilds every kernel.
 
 #pragma once
 
@@ -59,6 +60,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// One contiguous run of `bytes` bytes (a multiple of 16; both addresses
+// 16-byte aligned) from global into shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -111,6 +121,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (bf16 pairs), B
+// MN-major in shared memory (the transpose-B bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (bf16 pairs),

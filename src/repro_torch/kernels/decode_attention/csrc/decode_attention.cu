@@ -1,6 +1,7 @@
 // Decode attention for Hopper (sm_90a): one query token per (batch, kv head)
-// against an L-slot KV cache, float32 online softmax, split over the slots
-// (flash-decoding) with the partial results combined inside one launch.
+// against an L-slot KV cache, head_dim 16, 64, 128 or 256, float32 online
+// softmax, split over the slots (flash-decoding) with the partial results
+// combined inside one launch.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py:
 // decode_attention_fwd (body _decode_kernel). Same function: the G query
@@ -31,10 +32,13 @@
 //      256), double-buffered: every load of a 2-tile slice is issued before
 //      the first is consumed. The tile's slot_pos entries come with it. The
 //      q rows come as 16-byte loads and sit in shared memory as float32.
-//   2. Scores: a row is read by 16 or 32 lanes, 16 bytes each (conflict-free);
-//      each lane keeps the partial dots of all MAX_HEADS heads for 3 or 4 rows
-//      (independent chains; each q chunk read serves those rows), summed over
-//      the lanes by a reduce-scatter (N - 1 shuffles for N heads); a masked
+//   2. Scores: a row is read by 2 to 32 lanes (one per 16-byte chunk of the
+//      row, at most 32: head_dim 16 in bf16 is 2 chunks, so 16 rows share a
+//      warp), 16 bytes each (conflict-free); each lane keeps the partial dots
+//      of all MAX_HEADS heads for 3 or 4 rows (independent chains; each q
+//      chunk read serves those rows), summed over the lanes by a
+//      reduce-scatter (N - 1 shuffles for N heads; where a row has fewer
+//      lanes than heads, each lane ends with several heads' dots); a masked
 //      slot gets -1e30.
 //   3. Softmax: one warp per head updates (m, l) from the tile's scores and
 //      turns them into p in place.
@@ -70,6 +74,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_HEADS = 8;          // query heads a block holds
 constexpr int MAX_SPLITS = 8;         // blocks a cluster holds (the portable size)
+constexpr int MAX_ROW_GROUPS = 8;     // PV row groups; their sums meet one after another
 constexpr float NEG_INF = -1e30f;
 
 template <typename T, int HD>
@@ -85,7 +90,11 @@ struct Shape {
   static constexpr int MAX_TILE = FIT < 64 ? FIT : 64;          // slots a K or V tile
   static constexpr int R = MAX_HEADS * E <= 32 ? 4 : 3;          // rows scored at once
   static constexpr int QPT = (MAX_HEADS * CH + THREADS - 1) / THREADS;   // q chunks a thread loads
-  static_assert(MAX_HEADS <= LPR, "a row group reduces at most one head a lane");
+  // after the row group's reduce-scatter a lane holds KEEP heads' dots, each
+  // held by DUP lanes (KEEP > 1 only at head_dim 16, where a row has fewer
+  // 16-byte chunks than MAX_HEADS; a bf16 row at 64 has exactly 8)
+  static constexpr int KEEP = MAX_HEADS > LPR ? MAX_HEADS / LPR : 1;
+  static constexpr int DUP = LPR > MAX_HEADS ? LPR / MAX_HEADS : 1;
 };
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
@@ -186,15 +195,21 @@ struct PhaseClock {
 #endif
 
 // Sums, over the LPR lanes of a row group, N per-lane values (one per head;
-// N <= LPR, powers of two). Each halving step sends a partner the half of
-// the values that it keeps (N - 1 shuffles in all, not N log LPR); then the
-// lanes that hold the same head finish by plain shuffles. Returns the sum of
-// head `head`.
+// powers of two). Each halving step sends a partner the half of the values
+// that it keeps (N - 1 shuffles in all, not N log LPR). Where N <= LPR the
+// lanes that hold the same head finish by plain shuffles and v[0] is the sum
+// of head `head`; where N > LPR the halving stops when every lane of the
+// group has been added in, and v[0 .. N / LPR) are the sums of heads `head`,
+// `head` + 1, ...
+__host__ __device__ constexpr int log2_of(int x) { return x > 1 ? 1 + log2_of(x / 2) : 0; }
+
 template <int N, int LPR>
-__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane, int& head) {
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane, int& head) {
+  constexpr int HALVINGS = log2_of(N < LPR ? N : LPR);
   head = 0;
 #pragma unroll
-  for (int n = N, off = LPR / 2; n > 1; n /= 2, off /= 2) {
+  for (int step = 0; step < HALVINGS; ++step) {
+    const int n = N >> step, off = (LPR / 2) >> step;
     const bool up = lane & off;
 #pragma unroll
     for (int i = 0; i < n / 2; ++i) {
@@ -204,10 +219,9 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane, int& he
     }
     if (up) head += n / 2;
   }
-  float x = v[0];
 #pragma unroll
-  for (int off = LPR / N / 2; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int off = (LPR / 2) >> HALVINGS; off > 0; off /= 2)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
 }
 
 // Shared memory of one block, in bytes: K/V stages, q (MAX_HEADS rows, zero
@@ -261,7 +275,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int cur_pos, int window, float scale) {
   using Sh = Shape<T, HD>;
   constexpr int E = Sh::E, CH = Sh::CH, LPR = Sh::LPR, RPW = Sh::RPW, CPL = Sh::CPL;
-  constexpr int HPP = Sh::HPP, PASSES = Sh::PASSES, R = Sh::R;
+  constexpr int HPP = Sh::HPP, PASSES = Sh::PASSES, R = Sh::R, KEEP = Sh::KEEP, DUP = Sh::DUP;
   cg::cluster_group cluster = cg::this_cluster();
   PhaseClock clk;
 
@@ -326,9 +340,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // PV ownership: column chunk c_pv of heads g0 + j * HPP; when the group
   // leaves at least half the head slots idle, they split the rows instead
-  // (row group rg of nrg takes rows rg, rg + nrg, ...)
+  // (row group rg of nrg <= MAX_ROW_GROUPS takes rows rg, rg + nrg, ...)
   const int c_pv = tid % CH, hslot = tid / CH;
-  const int nrg = HPP >= 2 * gb ? HPP / gb : 1;
+  const int nrg = HPP >= 2 * gb ? min(HPP / gb, MAX_ROW_GROUPS) : 1;
   const int rg = nrg > 1 ? hslot / gb : 0;
   const int g0 = nrg > 1 ? hslot % gb : hslot;
   const bool pv = rg < nrg && g0 < gb;
@@ -382,11 +396,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < R; ++i) {
         const int r = r0 + rw + i * RPW;
         int g;
-        const float dot = reduce_scatter<MAX_HEADS, LPR>(part[i], lane, g);
+        reduce_scatter<MAX_HEADS, LPR>(part[i], lane, g);
         const int sp = r < rows ? ps[r] : -1;
         const bool valid = sp >= 0 && sp <= cur_pos && (window <= 0 || sp > cur_pos - window);
-        if (r < rows && g < gb && (sub & (LPR / MAX_HEADS - 1)) == 0)
-          s_p[g * tile + r] = valid ? dot * scale : NEG_INF;
+#pragma unroll
+        for (int j = 0; j < KEEP; ++j)
+          if (r < rows && g + j < gb && (sub & (DUP - 1)) == 0)
+            s_p[(g + j) * tile + r] = valid ? part[i][j] * scale : NEG_INF;
       }
     }
     __syncthreads();
@@ -563,7 +579,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* slot_
   return cudaGetLastError();
 }
 
-// Instances: head dim 128 or 256.
+// Instances: head dim 16, 64, 128 or 256.
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const int* sp,
                      void* o, int B, int L, int K, int G, int hb, int splits, int slots,
@@ -572,18 +588,21 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const 
   if (gc > MAX_HEADS || splits < 1 || splits > MAX_SPLITS || slots < 1 ||
       (int64_t)splits * slots < L || (hb - 1) * gc >= G)
     return cudaErrorInvalidValue;
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, sp, o, B, L, K, G, hb, gc, splits, slots, st, cur_pos,
-                          window, scale, s);
-  if (hd == 256)
-    return launch<T, 256>(q, k, v, sp, o, B, L, K, G, hb, gc, splits, slots, st, cur_pos,
-                          window, scale, s);
+#define DECODE_HD(HD)                                                                     \
+  if (hd == HD)                                                                           \
+  return launch<T, HD>(q, k, v, sp, o, B, L, K, G, hb, gc, splits, slots, st, cur_pos, \
+                       window, scale, s)
+  DECODE_HD(16);
+  DECODE_HD(64);
+  DECODE_HD(128);
+  DECODE_HD(256);
+#undef DECODE_HD
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd: 128 or 256; a head block holds at
+// dtype: 0 = float32, 1 = bfloat16; hd: 16, 64, 128 or 256; a head block holds at
 // most 8 heads of the group H / K. strides (10 int64, in elements, the head dim
 // contiguous): q (batch, head), cache k and v (batch, slot, kv head), out
 // (batch, head); cache rows 16-byte aligned. slot_pos is int32 [L] on the

@@ -5,10 +5,10 @@
 ``[B, L, K, hd]``, ``slot_pos [L]`` int32 (-1 = empty) and ``cur_pos``. A CPU
 tensor goes to the plain version (``ref.py``); a CUDA tensor launches
 ``csrc/decode_attention.cu``, which reads the cache in place, or raises. The
-kernel takes head_dim 128 or 256 and a group ``H // K`` of at most 16 (in
-head blocks of at most 8 heads), and splits the L slots of each (batch, kv
-head) over the blocks of a thread-block cluster as ``split_plan`` says. ``decode_attention.launches``
-counts kernel launches.
+kernel takes head_dim 16, 64, 128 or 256 and a group ``H // K`` of at most 16
+(in head blocks of at most 8 heads), and splits the L slots of each (batch,
+kv head) over the blocks of a thread-block cluster as ``split_plan`` says.
+``decode_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (16, 64, 128, 256)
 MAX_GROUP = 16
 MAX_BLOCK_HEADS = 8    # query heads a block of the kernel holds
 MAX_SPLITS = 8         # blocks of a cluster: the portable size
@@ -51,7 +51,7 @@ def split_plan(B: int, K: int, G: int, L: int, hd: int) -> SplitPlan:
     group is split into more head blocks, each of which reads the cache again
     (mostly from L2). At recurrentgemma-2b's decode shape 2 head blocks x 8
     splits ran faster on an H100 than one cluster of 16 blocks (PERF.md §6).
-    ``hd`` is checked, not used: both head dims take the same rule."""
+    ``hd`` is checked, not used: every head dim takes the same rule."""
     if min(B, K, G, L) < 1 or G > MAX_GROUP or hd not in HEAD_DIMS:
         raise ValueError(f"no split plan for B {B}, K {K}, G {G}, L {L}, hd {hd}")
     splits = 1

@@ -5,37 +5,43 @@
 // flash_attention_fwd (body _flash_fwd_kernel). Same function: query head h
 // reads kv head h / G, scale 1/sqrt(hd), masked logits -1e30, visible keys
 // ki <= qi (causal) and ki > qi - window, output acc / max(l, 1e-30) in q's
-// dtype. Layout [B, S, H, hd] / [B, S, K, hd], head_dim 128 or 256.
+// dtype. Layout [B, S, H, hd] / [B, S, K, hd], head_dim 16, 64, 128 or 256.
 //
-// Two kernels, chosen by dtype:
+// Two kernels, chosen by dtype and head dim:
 //
-// * bfloat16 -> flash_tc_kernel, on the tensor cores. S = Q K^T and O += P V
-//   are wgmma products (bf16 in, float32 accumulate). A block is one
-//   consumer warpgroup that owns a 64-row query tile (wgmma's M) of one
-//   head, and a producer warp; grid (ceil(S / 64), B * H). One producer
-//   thread feeds a ring of 2 K/V tiles of 64 keys through TMA, each stage
-//   guarded by a full and an empty mbarrier. The tensor maps are 4-D over
-//   {hd, heads, S, B} with the tensors' own byte strides, encoded per call
-//   on the host (cuTensorMapEncodeTiled, looked up through
-//   cudaGetDriverEntryPoint, so no -lcuda) from a plan the wrapper caches
-//   per layout, and passed as __grid_constant__ parameters. A box is
-//   [rows, 64] bf16 with the 128-byte swizzle, so a tile is hd / 64 boxes; the wgmma
-//   descriptors use the same swizzle. Rows past S arrive as zeros and are
-//   masked. Q and K are K-major operands; V is the MN-major B operand of the
-//   second product (transpose-B bit), and P goes from the S accumulator to
-//   the A-operand registers as bf16 pairs without a shuffle. Registers: the
-//   O accumulator takes hd / 2 floats a thread and S BK / 2; at hd 256 with
-//   BK = 64 that is 199 registers, no spills, and its 160 KB of shared
-//   memory leave one block an SM (80 KB and two blocks at hd 128). Only kv
-//   tiles the query tile can see are loaded; tiles on the diagonal, at the
-//   window's edge or past S are masked in registers, from each accumulator
+// * bfloat16 at head_dim 64, 128 or 256 -> flash_tc_kernel, on the tensor
+//   cores. S = Q K^T and O += P V are wgmma products (bf16 in, float32
+//   accumulate). A block is one consumer warpgroup that owns a 64-row query
+//   tile (wgmma's M) of one head, and a producer warp; grid (ceil(S / 64), B *
+//   H). One producer thread feeds a ring of 2 K/V tiles of 64 keys through
+//   TMA, each stage guarded by a full and an empty mbarrier. The tensor maps
+//   are 4-D over {hd, heads, S, B} with the tensors' own byte strides, encoded
+//   per call on the host (cuTensorMapEncodeTiled, looked up through
+//   cudaGetDriverEntryPoint, so no -lcuda) from a plan the wrapper caches per
+//   layout, and passed as __grid_constant__ parameters. A box is [rows, 64]
+//   bf16 with the 128-byte swizzle, so a tile is hd / 64 boxes (one at hd 64);
+//   the wgmma descriptors use the same swizzle. Rows past S arrive as zeros
+//   and are masked. Q and K are K-major operands; V is the MN-major B operand
+//   of the second product (transpose-B bit), and P goes from the S accumulator
+//   to the A-operand registers as bf16 pairs without a shuffle. Registers: the
+//   O accumulator takes hd / 2 floats a thread and S BK / 2; at hd 256 with BK
+//   = 64 that is 199 registers, no spills, and its 160 KB of shared memory
+//   leave one block an SM (80 KB and two blocks at hd 128, 41 KB at hd 64).
+//   Only kv tiles the query tile can see are loaded; tiles on the diagonal, at
+//   the window's edge or past S are masked in registers, from each accumulator
 //   register's (row, column) in the m64nN fragment layout. One instance per
 //   head dim: 3 stages, 32-key tiles at hd 256 and two consumer warpgroups
 //   sharing each K/V tile were each slower at the serving shapes.
-// * float32 -> flash_f32_kernel, float32 FMAs on CUDA cores. Float32 wgmma
-//   would be TF32, which would break the float32 tolerance (2e-5) that the
-//   float32 models hold the kernel to. One block per (b * h, 32-row query
-//   tile), four threads per row, padded float tiles in shared memory.
+// * float32 at every head dim, and bfloat16 at head_dim 16 ->
+//   flash_cc_kernel, float32 FMAs on CUDA cores (bf16 is widened as it is
+//   staged and rounded once on the way out). Float32 wgmma would be TF32,
+//   which would break the float32 tolerance (2e-5) that the float32 models
+//   hold the kernel to. At head_dim 16 a bf16 row is 32 bytes, narrower than
+//   the 128-byte swizzle box the tensor-core kernel is built on, QK^T would
+//   be a single k16 step, and no served model runs bf16 at head_dim 16 (the
+//   reduced configs serve in float32), so that instance shares the CUDA-core
+//   kernel. One block per (b * h, 32-row query tile), four threads per row,
+//   padded float tiles in shared memory.
 //
 // Bound on H100 (989 TFLOP/s bf16, 3.35 TB/s): at qwen2-7b's prefill shape
 // (B 4, S 512, H 28, K 4, hd 128, causal, bf16) the work is ~7.5 GFLOP
@@ -53,24 +59,34 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core kernel
+// CUDA-core kernel: float32 at every head dim, bfloat16 at head_dim 16
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 constexpr int F_BQ = 32;           // query rows per block
 constexpr int F_BK = 32;           // keys per kv tile
 constexpr int F_THREADS = 128;     // 4 threads per query row
 constexpr int F_COLS = F_BK / 4;   // score columns per thread
 
-template <int HD>                  // head dim: 128 or 256
-constexpr int f32_smem_floats() {
+template <int HD>                  // head dim: 16, 64, 128 or 256
+constexpr int cc_smem_floats() {
   return F_BQ * (HD + 1) + F_BK * (HD + 1) + F_BK * HD + F_BQ * (F_BK + 1);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(F_THREADS)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 int S, int H, int G,
+// Four blocks an SM: with no floor, ptxas capped some instances at 48 to 72
+// registers and spilled a few bytes.
+template <typename T, int HD>
+__global__ void __launch_bounds__(F_THREADS, 4)
+flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o,
+                int S, int H, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -91,14 +107,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c0 = t & 3;                // its first score / accumulator column
   const int qi = q0 + r;
 
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + kh * k_sh;
-  const float* vb = v + b * v_sb + kh * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + kh * k_sh;
+  const T* vb = v + b * v_sb + kh * v_sh;
 
   for (int e = t; e < F_BQ * HD; e += F_THREADS) {
     const int row = e / HD, d = e % HD;
     const int qr = q0 + row;
-    Qs[row * (HD + 1) + d] = qr < S ? qb[qr * q_ss + d] : 0.f;
+    Qs[row * (HD + 1) + d] = qr < S ? to_float(qb[qr * q_ss + d]) : 0.f;
   }
 
   // kv tiles this query tile can see
@@ -119,8 +135,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = e / HD, d = e % HD;
       const int kr = k0 + row;
       const bool in = kr < S;
-      Ks[row * (HD + 1) + d] = in ? kb[kr * k_ss + d] : 0.f;
-      Vs[row * HD + d] = in ? vb[kr * v_ss + d] : 0.f;
+      Ks[row * (HD + 1) + d] = in ? to_float(kb[kr * k_ss + d]) : 0.f;
+      Vs[row * HD + d] = in ? to_float(vb[kr * v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -176,26 +192,26 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (qi < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = o + b * o_sb + qi * o_ss + h * o_sh;
+    T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[c0 + 4 * j] = acc[j] * inv;
+    for (int j = 0; j < DPT; ++j) orow[c0 + 4 * j] = from_float<T>(acc[j] * inv);
   }
 }
 
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int K,
-                       const int64_t* qs, const int64_t* ks, const int64_t* vs,
-                       const int64_t* os, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = f32_smem_floats<HD>() * sizeof(float);
+template <typename T, int HD>
+cudaError_t launch_cc(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int K,
+                      const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                      const int64_t* os, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = cc_smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_cc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, B * H);
-  flash_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
+  flash_cc_kernel<T, HD><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, H / K,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       os[0], os[1], os[2], causal, window, scale);
   return cudaGetLastError();
@@ -217,8 +233,9 @@ static_assert(PLAN == TMA_PLAN_VALUES, "a plan is kernels/_tma.py's TensorMapPla
 
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
-  static_assert(N == 128 || N == 256, "head dim 128 or 256");
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  static_assert(N == 64 || N == 128 || N == 256, "head dim 64, 128 or 256");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }
 
@@ -438,33 +455,40 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 
 }  // namespace
 
-// float32 inputs. hd: 128 or 256. Strides are in elements, ordered (batch,
-// seq, head); the head dim must be contiguous. Returns a cudaError_t.
-extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                                       int B, int S, int H, int K, int hd,
-                                       const int64_t* q_strides, const int64_t* k_strides,
-                                       const int64_t* v_strides, const int64_t* o_strides,
-                                       int causal, int window, float scale, void* stream) {
+// The CUDA-core kernel. dtype: 0 = float32 (hd 16, 64, 128 or 256), 1 =
+// bfloat16 (hd 16). Strides are in elements, ordered (batch, seq, head); the
+// head dim must be contiguous. Returns a cudaError_t.
+extern "C" int flash_attention_fwd_cc(int dtype, const void* q, const void* k, const void* v,
+                                      void* o, int B, int S, int H, int K, int hd,
+                                      const int64_t* q_strides, const int64_t* k_strides,
+                                      const int64_t* v_strides, const int64_t* o_strides,
+                                      int causal, int window, float scale, void* stream) {
   if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return (int)launch_f32<128>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides,
-                                o_strides, causal, window, scale, st);
-  if (hd == 256)
-    return (int)launch_f32<256>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides,
-                                o_strides, causal, window, scale, st);
+#define FLASH_CC(T, HD)                                                                 \
+  return (int)launch_cc<T, HD>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides, \
+                               o_strides, causal, window, scale, st)
+  if (dtype == 0 && hd == 16) FLASH_CC(float, 16);
+  if (dtype == 0 && hd == 64) FLASH_CC(float, 64);
+  if (dtype == 0 && hd == 128) FLASH_CC(float, 128);
+  if (dtype == 0 && hd == 256) FLASH_CC(float, 256);
+  if (dtype == 1 && hd == 16) FLASH_CC(__nv_bfloat16, 16);
+#undef FLASH_CC
   return (int)cudaErrorInvalidValue;
 }
 
-// bfloat16 inputs. args: 3 * 11 + 3 int64, the tensor maps of q, k and v
-// (dims, byte strides, box; see encode_map), then o's strides in elements
-// (batch, seq, head). Returns a cudaError_t.
+// The tensor-core kernel: bfloat16 inputs, hd 64, 128 or 256. args: 3 * 11
+// + 3 int64, the tensor maps of q, k and v (dims, byte strides, box; see
+// encode_map), then o's strides in elements (batch, seq, head). Returns a
+// cudaError_t.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int B, int S, int H, int K, int hd,
                                         const int64_t* args, int causal, int window,
                                         float scale, void* stream) {
   if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return (int)launch_tc<64>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
   if (hd == 128)
     return (int)launch_tc<128>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
   if (hd == 256)

@@ -3,16 +3,18 @@
 ``flash_attention`` takes the model layout ``[B, S, H, hd]`` / ``[B, S, K, hd]``
 as ``repro.kernels.flash_attention.ops`` does. A CPU tensor goes to the plain
 version (``ref.py``). A CUDA tensor launches ``csrc/flash_attention.cu``
-(head_dim 128 or 256) or raises:
+(head_dim 16, 64, 128 or 256) or raises:
 
-* bfloat16 takes the tensor-core kernel: ``wgmma`` products, K/V tiles fed by
-  TMA through a ring of shared-memory stages. Its tensor maps are planned by
+* bfloat16 at head_dim 64, 128 or 256 takes the tensor-core kernel: ``wgmma``
+  products, K/V tiles fed by TMA through a ring of shared-memory stages. Its tensor maps are planned by
   ``tensor_map_plan`` (``kernels/_tma.py``, cached per shape and strides; the
   base address is checked on every call); a layout TMA cannot take (a byte
   stride that is not a multiple of 16, a base that is not 16-byte aligned, a
   strided head dim) raises ``ValueError``.
-* float32 takes the CUDA-core kernel (float32 FMAs): ``wgmma`` in float32 is
-  TF32, which would not hold the float32 tolerance.
+* float32, and bfloat16 at head_dim 16, take the CUDA-core kernel (float32
+  FMAs): ``wgmma`` in float32 is TF32, which would not hold the float32
+  tolerance, and a 16-column bf16 row is narrower than the tensor-core
+  kernel's 128-byte swizzle box.
 
 ``flash_attention.launches`` counts kernel launches.
 """
@@ -29,7 +31,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._tma import BOX_COLS, TensorMapPlan, tensor_map_plan  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (16, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)   # bf16 head dims of the tensor-core kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 64         # query rows a block: wgmma's M (BM in the source)
 BLOCK_K = 64         # keys a K/V tile (BK in the source)
 
@@ -54,13 +58,13 @@ def bf16_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.flash_attention_fwd_f32.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [i64p] * 4
+    lib.flash_attention_fwd_cc.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [i64p] * 4
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_fwd_bf16.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [i64p]
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
-    for fn in (lib.flash_attention_fwd_f32, lib.flash_attention_fwd_bf16):
+    for fn in (lib.flash_attention_fwd_cc, lib.flash_attention_fwd_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -88,23 +92,23 @@ def _launch(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
         raise ValueError(f"flash_attention kernel takes head_dim {HEAD_DIMS}, got {hd}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     scale = 1.0 / math.sqrt(hd)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        entry, lead = "flash_attention_fwd_bf16", ()
         args = (bf16_kernel_args(q, k, v, out), int(causal), int(window), scale)
-        entry = "flash_attention_fwd_bf16"
-    elif q.dtype == torch.float32:
+    else:
         if any(t.stride(3) != 1 for t in (q, k, v)):
             raise ValueError("flash_attention kernel needs a contiguous head dim")
+        entry, lead = "flash_attention_fwd_cc", (_DTYPES[q.dtype],)
         strides = [_build.int64_array(t.stride()[:3]) for t in (q, k, v, out)]
         args = (*strides, int(causal), int(window), scale)
-        entry = "flash_attention_fwd_f32"
-    else:
-        raise ValueError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = getattr(lib, entry)(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   out.data_ptr(), B, S, H, K, hd, *args, stream)
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1

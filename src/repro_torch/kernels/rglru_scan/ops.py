@@ -4,13 +4,16 @@
 ``a, b [B, S, W]`` from ``h0 [B, W]`` with a float32 carry, as
 ``repro.kernels.rglru_scan.ops`` does; the output is in b's dtype. A CPU
 tensor goes to the plain version (``ref.py``); a CUDA tensor launches
-``csrc/rglru_scan.cu`` or raises. ``rglru_scan.launches`` counts kernel
-launches.
+``csrc/rglru_scan.cu`` or raises. The kernel splits the sequence into chunks
+over the blocks of a thread-block cluster as ``scan_plan`` says, and stages
+its tiles by bulk copies where ``bulk_copies`` allows them.
+``rglru_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +21,45 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CLUSTER = 8      # chunks a round: blocks of a portable cluster
+MAX_CHUNK = 64       # steps a block stages a round
+MIN_CHUNK = 16       # a short sequence takes fewer chunks, of at least this many steps
+
+
+class ScanPlan(NamedTuple):
+    """How the kernel covers S: ``clusters`` chunks a round (blocks of a
+    cluster), each of ``chunk`` steps (the last ones may take fewer, or
+    none), over ``rounds`` rounds."""
+    clusters: int
+    chunk: int
+    rounds: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(S: int) -> ScanPlan:
+    """The fewest rounds of at most ``MAX_CLUSTER`` chunks of at most
+    ``MAX_CHUNK`` steps, with chunks of about equal length and at least
+    ``MIN_CHUNK`` steps where S allows: [4, 512, W] takes 8 chunks of 64
+    steps in one round."""
+    if S < 1:
+        raise ValueError(f"no scan plan for S = {S}")
+    clusters = min(MAX_CLUSTER, max(1, S // MIN_CHUNK))
+    rounds = -(-S // (clusters * MAX_CHUNK))
+    return ScanPlan(clusters, -(-S // (clusters * rounds)), rounds)
+
+
+def bulk_copies(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the kernel can stage a and b [B, S, W] by 1-D bulk copies: a
+    16-byte aligned base, and batch and seq byte strides (of dims longer
+    than 1) and a row of W elements that are multiples of 16. Otherwise it
+    stages them by plain loads."""
+    for t in (a, b):
+        size = t.element_size()
+        if t.data_ptr() % 16 or t.shape[2] * size % 16:
+            return False
+        if any(n > 1 and st * size % 16 for n, st in zip(t.shape[:2], t.stride()[:2])):
+            return False
+    return True
 
 
 @functools.cache
@@ -26,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.rglru_scan_fwd.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        + [i64p] * 3 + [ctypes.c_void_p])
+        + [i64p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.rglru_scan_fwd.restype = ctypes.c_int
     return lib
 
@@ -67,7 +109,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rglru_scan_fwd(_DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
                                  h0.data_ptr(), out.data_ptr(), B, S, W,
-                                 *strides, stream)
+                                 *strides, *scan_plan(S), int(bulk_copies(a, b)), stream)
     _build.check(lib, err, "rglru_scan")
     rglru_scan.launches += 1
     return out

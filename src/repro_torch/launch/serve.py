@@ -11,8 +11,14 @@ request trace, with the paper's autoscaler (counterpart of
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
 
 Runs on the card unless ``--device cpu``; ``--devices N`` caps the number of
-cards the pool may use (0 = all). Weights are random, drawn on the device
-from ``--seed``.
+cards the pool may use (0 = all). Weights are random, drawn from ``--seed``:
+a reduced model's on the CPU and copied to the card, so that the default run
+serves the same tokens on the card as with ``--device cpu``; a model at its
+published widths on the card, where its billions of parameters are drawn in
+parallel and never pass through host memory (drawn on the CPU they would
+take the host's cores and a copy of the whole model there; that cost is not
+measured). CUDA and CPU generators draw different numbers from one seed, so
+a full-width model differs between ``--device cuda`` and ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -59,8 +65,9 @@ def run(argv=None) -> dict:
         devices = DevicePool().devices[:args.devices or None]
     cfg = get_config(args.arch)
     cfg = reduced_config(cfg) if args.reduced else cfg
-    generator = torch.Generator(device=devices[0]).manual_seed(args.seed)
-    model = M.init_params(cfg, generator, devices[0])
+    init_on = torch.device("cpu") if args.reduced else devices[0]
+    model = M.init_params(cfg, torch.Generator(device=init_on).manual_seed(args.seed),
+                          init_on)
     pool = ServingPool(cfg, model, capacity_tokens_per_replica=args.capacity)
     pool.scale_to(devices[:1])
     batcher = ContinuousBatcher(max_batch=args.max_batch)

@@ -29,6 +29,24 @@ def _randn(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+def _launcher_default_shapes():
+    """The mLSTM's (B, S, H, dqk, dv, chunk) and the scan's (B, S, W) in the
+    prefill of ``python -m repro_torch.launch.serve`` at its defaults: a
+    batch of ``--max-batch`` prompts of ``--prompt-len`` tokens through the
+    reduced xlstm-1.3b and recurrentgemma-2b."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import build_parser
+    from repro_torch.models.xlstm import PREFILL_CHUNK, mlstm_dims
+    args = build_parser().parse_args([])
+    B, S = args.max_batch, args.prompt_len
+    _, H, dqk, dv = mlstm_dims(reduced_config(get_config("xlstm-1.3b")))
+    W = reduced_config(get_config("recurrentgemma-2b")).lru_width
+    return (B, S, H, dqk, dv, PREFILL_CHUNK), (B, S, W)
+
+
+MLSTM_DEFAULTS, SCAN_DEFAULTS = _launcher_default_shapes()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,K,win,causal", [
     (2, 256, 4, 2, 0, True), (1, 512, 4, 4, 0, True), (2, 256, 8, 2, 128, True),
@@ -76,10 +94,11 @@ def test_flash_bf16_tensor_core_kernel_edges(cuda, B, S, H, K, win, causal, hd):
     assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 def test_flash_bf16_every_compiled_instance_matches_plain(cuda, hd):
     """The head dim's one bf16 instance, over shapes in turn: each call reuses
-    or adds a cached plan and must still read its own tensors."""
+    or adds a cached plan and must still read its own tensors (head_dim 16
+    takes the CUDA-core kernel, the others the tensor-core one)."""
     from repro_torch.kernels.flash_attention import ops
     for B, S, H, K, win, causal in [(2, 500, 28, 4, 0, True), (1, 130, 4, 2, 0, False),
                                     (1, 300, 10, 1, 65, True), (1, 256, 7, 1, 64, True),
@@ -105,6 +124,27 @@ def test_flash_bf16_takes_slices_of_a_fused_qkv(cuda, hd):
     ref = ops.flash_attention_reference(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("B,S,H,K,win,causal", [
+    (8, 8, 4, 2, 0, True),                       # reduced qwen2-7b's prefill at the defaults
+    (8, 8, 4, 1, 16, True),                      # reduced recurrentgemma-2b's (window 16)
+    (2, 500, 28, 4, 0, True), (1, 300, 10, 1, 65, True),   # ragged S; groups 7, 10
+    (2, 130, 4, 2, 0, False), (1, 256, 4, 4, 63, True),    # not causal; window at an edge
+])
+def test_flash_kernel_small_head_dims_match_plain(cuda, B, S, H, K, win, causal, hd, dtype):
+    """head_dim 16 (every reduced config) and 64 (musicgen-large)."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = _flash_case(cuda, B, S, H, K, hd, dtype)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=win)
+    ref = ops.flash_attention_reference(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
 def test_flash_bf16_rejects_layouts_tma_cannot_take(cuda):
@@ -214,6 +254,32 @@ def test_decode_split_kernel_edges(cuda, case, hd, dtype):
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("B,H,K,L,win,fill", [
+    (8, 4, 2, 16, 0, 9), (8, 4, 2, 16, 0, 16),  # reduced qwen2-7b at the defaults
+    (8, 4, 1, 16, 16, 16),                       # reduced recurrentgemma-2b (window 16)
+    (4, 28, 4, 544, 0, 513), (4, 10, 1, 544, 2048, 544),   # groups 7 and 10
+    (2, 8, 2, 5, 0, 5), (1, 8, 2, 4096, 1024, 4096),       # L 5 < splits; long, windowed
+    (2, 8, 2, 300, 0, 0), (1, 16, 1, 300, 0, 300),         # no valid slot; group 16
+])
+def test_decode_kernel_small_head_dims_match_plain(cuda, B, H, K, L, win, fill, hd, dtype):
+    """head_dim 16 and 64: a row is 2 to 16 lanes' chunks, so several rows
+    share a warp and a lane may finish several heads' dots."""
+    from repro_torch.kernels.decode_attention import ops
+    q, ck, cv = _decode_case(cuda, B, H, K, hd, L, dtype)
+    ar = torch.arange(L, device="cuda", dtype=torch.int32)
+    sp = torch.where(ar < fill, ar, torch.full_like(ar, -1))
+    cur = max(fill - 1, 0)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, ck, cv, sp, cur, window=win)
+    ref = ops.decode_attention_reference(q, ck, cv, sp, cur, window=win)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
 @pytest.mark.parametrize("plan", [(2, 8, 68), (2, 1, 544), (5, 3, 182), (10, 4, 136)])
 def test_decode_kernel_takes_any_split_plan(cuda, plan):
     """recurrentgemma-2b's decode shape under its split plan, one block per
@@ -249,13 +315,50 @@ def _rglru_inputs(gen, B, S, W, dtype):
     (2, 512, 512), (1, 256, 1024), (3, 128, 512),       # tests/test_kernels.py
     (4, 512, 2560),                                      # recurrentgemma-2b prefill
     (1, 511, 1000), (2, 7, 33),                          # ragged S and W
+    SCAN_DEFAULTS,                                       # the launcher's default serve
+    # the split-S kernel's shapes (scan_plan: chunks of <= 64 steps, <= 8 a
+    # round): S shorter than a chunk, S = 1, 6 chunks of 17, 2 and 10 rounds,
+    # a ragged channel tile, W = 33 staged by plain loads
+    (2, 10, 256), (3, 1, 128), (2, 100, 512), (2, 1000, 192), (1, 5000, 64),
+    (2, 511, 1000), (2, 300, 33),
 ])
 def test_rglru_kernel_matches_plain(cuda, B, S, W, dtype):
     """float32 2e-5 (an FMA where the plain loop rounds twice; the plain
     loop is held to the JAX oracle at 2e-4 on the CPU); bf16 3e-2 (one
-    rounding of h to bf16)."""
+    rounding of h to bf16). Rows of W elements that are not a multiple of
+    16 bytes are staged by plain loads, the others by bulk copies."""
     from repro_torch.kernels.rglru_scan import ops
     a, b, h0 = _rglru_inputs(cuda, B, S, W, dtype)
+    assert ops.bulk_copies(a, b) == (W * a.element_size() % 16 == 0)
+    before = ops.rglru_scan.launches
+    h = ops.rglru_scan(a, b, h0)
+    ref = ops.rglru_scan_reference(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    assert h.dtype == dtype and h.shape == (B, S, W) and torch.isfinite(h).all()
+    assert (h.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["a = 0 on chunk 3", "strided, bulk", "strided, plain loads"])
+def test_rglru_split_kernel_edges(cuda, case, dtype):
+    """The split-S cluster kernel: a chunk whose product of a is 0 (the carry
+    is cut there), and a non-zero h0 with non-contiguous batch and seq dims,
+    both staged by bulk copies and by plain loads."""
+    from repro_torch.kernels.rglru_scan import ops
+    B, S, W = {"a = 0 on chunk 3": (2, 512, 256), "strided, bulk": (3, 200, 96),
+               "strided, plain loads": (3, 200, 90)}[case]
+    a, b, h0 = _rglru_inputs(cuda, B, S, W, dtype)
+    if case.startswith("a = 0"):
+        c = ops.scan_plan(S).chunk
+        a[:, 3 * c:4 * c] = 0
+    if case.startswith("strided"):      # a [S, B, W] and a [B, S, 2W] layout
+        a = a.transpose(0, 1).contiguous().transpose(0, 1)
+        b = torch.cat([b, b], dim=2)[..., :W]
+    if case.endswith("plain loads"):
+        assert not ops.bulk_copies(a, b)
+    else:
+        assert ops.bulk_copies(a, b)
     before = ops.rglru_scan.launches
     h = ops.rglru_scan(a, b, h0)
     ref = ops.rglru_scan_reference(a, b, h0)
@@ -299,9 +402,14 @@ def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
 def test_kernels_reject_what_they_do_not_take(cuda):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    q = _randn(cuda, 1, 64, 4, 64, dtype=torch.float32)       # head_dim 64
-    with pytest.raises(ValueError):
-        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(cuda, 1, 64, 4, 48, dtype=dtype)           # head_dim 48
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(q, q[:, :, :2], q[:, :, :2])
+        c = _randn(cuda, 1, 16, 2, 48, dtype=dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q[:, 0], c, c, torch.arange(16, device="cuda", dtype=torch.int32),
+                             15)
     q = _randn(cuda, 1, 4, 128, dtype=torch.float16)
     c = _randn(cuda, 1, 16, 2, 128, dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -352,6 +460,24 @@ def test_mlstm_kernel_matches_plain(cuda, B, S, H, dqk, dv, chunk, dtype):
         assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 1e-3)
 
 
+def test_mlstm_kernel_at_the_launcher_default_widths_matches_plain(cuda):
+    """The float32 kernel at the shape the launcher's default serve gives it
+    (reduced xlstm-1.3b: dqk 16, dv 32, one chunk of S), at the tolerances
+    of ``test_mlstm_kernel_matches_plain``; bf16 takes dqk >= 64 only."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    B, S, H, dqk, dv, chunk = MLSTM_DEFAULTS
+    args = _mlstm_inputs(cuda, B, S, H, dqk, dv, torch.float32)
+    before = ops.mlstm_chunk.launches
+    h, state = ops.mlstm_chunk(*args, chunk=chunk, return_state=True)
+    h_ref, state_ref = ops.mlstm_chunk_reference(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.mlstm_chunk.launches == before + 1
+    assert h.shape == (B, S, H, dv) and torch.isfinite(h).all()
+    assert _rel(h, h_ref) < 1e-4
+    for got, want in zip(state, state_ref):
+        assert got.shape == want.shape and _rel(got, want) < 1e-4
+
+
 def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     args = _mlstm_inputs(cuda, 1, 64, 2, 128, 64, torch.float32)
@@ -370,3 +496,41 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
     odd = _mlstm_inputs(cuda, 1, 64, 2, 128, 100, torch.bfloat16)
     with pytest.raises(ValueError, match="TMA"):
         mlstm_chunk(*odd)                                       # 200-byte v rows
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b"])
+def test_launcher_defaults_serve_on_the_card(cuda, arch, monkeypatch):
+    """``python -m repro_torch.launch.serve`` with its defaults: the card, a
+    reduced float32 model (head_dim 16). Every attention, mLSTM and scan call
+    goes through a kernel (the plain versions raise meanwhile), and the
+    greedy tokens equal those of the same run with ``--device cpu``."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mlstm_chunk import ops as mops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.launch import serve
+    cpu = serve.run(["--arch", arch, "--device", "cpu"])
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain kernel version ran on the card's path")
+
+    for mod, name in ((fops, "flash_attention_reference"), (dops, "decode_attention_reference"),
+                      (mops, "mlstm_chunk_reference"), (rops, "rglru_scan_reference")):
+        monkeypatch.setattr(mod, name, forbidden)
+    wrappers = {"flash": fops.flash_attention, "decode": dops.decode_attention,
+                "mlstm": mops.mlstm_chunk, "scan": rops.rglru_scan}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    card = serve.run(["--arch", arch])
+    launches = {name: fn.launches - before[name] for name, fn in wrappers.items()}
+    kinds, rounds = card["cfg"].layer_kinds(), card["rounds"]
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    steps = serve.build_parser().parse_args([]).max_new - 1      # decode steps a round
+    assert card["cfg"].head_dim == 16 and card["devices"][0].startswith("cuda")
+    assert launches == {"flash": rounds * n_attn, "decode": rounds * n_attn * steps,
+                        "mlstm": rounds * kinds.count("mlstm"),
+                        "scan": rounds * kinds.count("rglru")}
+    got = {r.req_id: r.done for r in card["completed"]}
+    want = {r.req_id: r.done for r in cpu["completed"]}
+    assert got.keys() == want.keys() and len(got) == 32
+    assert all(np.array_equal(got[i], want[i]) for i in want)

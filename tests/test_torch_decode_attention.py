@@ -70,6 +70,18 @@ def test_decode_plain_head_dim_256_group_10_matches_jax_ref(win, fill):
     _check(q, ck, cv, sp, fill - 1, win, "ref")
 
 
+@pytest.mark.parametrize("impl", ["interpret", "ref"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("B,H,K,L,win,fill", [(8, 4, 2, 16, 0, 9), (8, 4, 1, 16, 16, 16),
+                                              (2, 8, 2, 256, 64, 256)])
+def test_decode_plain_small_head_dims_match_jax_kernel(B, H, K, L, win, fill, hd, impl):
+    """head_dim 16 (reduced qwen2-7b's and recurrentgemma-2b's decode at the
+    launcher's defaults) and 64."""
+    q, ck, cv = _inputs(B, H, K, hd, L, seed=5)
+    sp = np.where(np.arange(L) < fill, np.arange(L), -1).astype(np.int32)
+    _check(q, ck, cv, sp, fill - 1, win, impl)
+
+
 def test_decode_wrapper_rejects_bad_inputs():
     q, ck, cv = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 128, 32))
     sp = torch.arange(32, dtype=torch.int32)
@@ -197,6 +209,10 @@ def test_split_plan_at_the_serving_shapes():
         ops.split_plan(1, 1, 17, 64, 128)
     with pytest.raises(ValueError):
         ops.split_plan(1, 1, 4, 64, 96)
+    # the launcher's defaults: reduced qwen2-7b (4 heads over 2) and
+    # recurrentgemma-2b (4 over 1, window 16), batch 8, 16 slots, head_dim 16
+    assert ops.split_plan(8, 2, 2, 16, 16) == ops.SplitPlan(1, 8, 2)
+    assert ops.split_plan(8, 1, 4, 16, 16) == ops.SplitPlan(1, 8, 2)
 
 
 def test_split_limits_name_the_kernel_source():

@@ -83,6 +83,19 @@ def test_flash_plain_head_dim_256_group_10_matches_jax_ref(S, win):
     assert _maxerr(_port(q, k, v, window=win), ref) < TOL
 
 
+@pytest.mark.parametrize("impl", ["interpret", "ref"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("B,S,H,K,win", [(8, 8, 4, 2, 0), (8, 8, 4, 1, 16),
+                                         (2, 256, 4, 2, 64)])
+def test_flash_plain_small_head_dims_match_jax_kernel(B, S, H, K, win, hd, impl):
+    """head_dim 16 (every reduced config: qwen2-7b's and recurrentgemma-2b's
+    prefill at the launcher's defaults) and 64 (musicgen-large)."""
+    q, k, v = _inputs(B, S, H, K, hd, seed=4)
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl=impl,
+                    window=win, block_q=128, block_k=128)
+    assert _maxerr(_port(q, k, v, window=win), ref) < TOL
+
+
 def test_flash_wrapper_rejects_bad_inputs():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 4, 2, 128))
     with pytest.raises(ValueError):
@@ -152,14 +165,19 @@ def test_tensor_map_plan_rejects_what_tma_cannot_take():
 
 def test_tile_configs_name_instances_of_the_kernel_source():
     """The wrapper's tile sizes are the source's, each head dim has an
-    instance, and a K/V tile is a whole number of wgmma k16 steps."""
+    instance in both dtypes (bf16 on the tensor cores where it is in
+    ``TC_HEAD_DIMS``), and a K/V tile is a whole number of wgmma k16 steps."""
     source = (Path(ops.__file__).parent / "csrc" / "flash_attention.cu").read_text()
     assert f"constexpr int BM = {ops.BLOCK_Q};" in source
     assert f"constexpr int BK = {ops.BLOCK_K};" in source
     assert f"constexpr int PLAN = {len(ops.tensor_map_plan(_bf16(1, 64, 1, 128), 64).values())};" \
         in source
-    for hd in ops.HEAD_DIMS:
+    for hd in ops.TC_HEAD_DIMS:
         assert f"launch_tc<{hd}>(" in source
+    for hd in ops.HEAD_DIMS:                 # float32 on the CUDA-core kernel
+        assert f"FLASH_CC(float, {hd});" in source
+    for hd in sorted(set(ops.HEAD_DIMS) - set(ops.TC_HEAD_DIMS)):
+        assert f"FLASH_CC(__nv_bfloat16, {hd});" in source
     assert ops.BLOCK_K % 16 == 0 and ops.BLOCK_Q == 64
 
 
