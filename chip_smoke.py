@@ -49,10 +49,24 @@ Phases, each of which fails the run on any error:
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
    each served model: kernel time by name (the top eight and every kernel of
    the port) and the device's idle share; for xlstm-1.3b also the wall time
-   of one mLSTM and one sLSTM block.
+   of one mLSTM and one sLSTM block;
+6. campaign: the batched WS request-queue kernel (``queue_core``) against its
+   plain version on random jobs of both capacity kinds, the CPU tests'
+   edges, the 192-job piecewise set and the dedicated-node constant set
+   (every column but the two sums bit-equal, the sums within 1e-5
+   relative), against the float64 oracle (golden tolerance) and alone vs
+   co-batched (bit-identical); then ``python -m
+   repro_torch.workloads.campaign --grid mix_tiny --trace DIR`` on the card
+   with the launch count zeroed and the plain core raising (traces equal the
+   goldens byte for byte, one launch per bucket, rows agree with the
+   ``--device cpu`` run); ``--grid full --shard 0/252`` (cells/s, queue
+   requests/s, each flush's wall and device time, ms and ns a request of
+   each launch); and the kernel's device time for one flush of that run's
+   first chunk and of the 192-job set beside the plain version's.
 
 Earlier lines are JSON records; the last three are the card line from
-``nvidia-smi``, ``{"kernels": [...]}`` and ``{"ok": true, "device": ...}``.
+``nvidia-smi``, ``{"kernels": [...]}`` (five rows: flash, decode, mLSTM,
+scan, queue core) and ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository checkout.
 """
@@ -152,6 +166,7 @@ BUILD_REPORTS = {
     "decode_attention": ("decode_build", r"decode_split_kernel", None),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
     "rglru_scan": ("scan_build", r"rglru_scan_kernel", None),
+    "queue_core": ("queue_build", r"queue_core_kernel", None),
 }
 
 
@@ -857,6 +872,360 @@ def time_xlstm_blocks(torch, pool):
     emit({"phase": "xlstm_blocks", "shape": list(x.shape), **out})
 
 
+# ------------------------------------------------------------ campaign phase
+
+QUEUE_EXACT = [0, 1, 2, 3, 5, 7]       # FOLD_COLS but the two sums (mean, mean wait)
+QUEUE_SUMS = [4, 6]
+QUEUE_PATH = "src/repro_torch/workloads/queueing.py"
+
+
+def queue_sets():
+    """The queue-core check sets, from seeds: random piecewise and constant
+    jobs, the edges of the CPU tests, the 192-job piecewise set (as
+    ``benchmarks/paper_figs.py:238-253`` builds it) and the dedicated-node
+    constant set (the small grid's three traces at 8, 12 and 16 nodes, as
+    ``paper_figs.py`` builds it), and ``wide_long_jobs``."""
+    import numpy as np
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads import QueueJob, RequestTrace, make_trace
+    model, slo30 = ServiceTimeModel(), SLOConfig(latency_target_s=30.0)
+    kinds = ("poisson", "mmpp", "diurnal", "flash_crowd")
+
+    def cut(tr, n):
+        return RequestTrace(tr.t[:n], tr.prompt_tokens[:n], tr.decode_tokens[:n], tr.kind)
+
+    random_jobs = []
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        for i in range(8):
+            rate = float(rng.uniform(0.4, 3.0)) * (0.1 if i % 4 == 3 else 1.0)
+            tr = make_trace(kinds[i % 4], rate, 1800.0, seed + i)
+            if i % 3 == 2:
+                ev = [(0.0, int(rng.integers(0, 8)))]
+            else:
+                ev = [(0.0, int(rng.integers(0, 10)))]
+                for _ in range(int(rng.integers(0, 12))):
+                    ev.append((float(rng.uniform(0.0, 1800.0)), int(rng.integers(0, 10))))
+            random_jobs.append(QueueJob(tr, ev, model, slo30, 1800.0))
+    tr = make_trace("poisson", 1.0, 600.0, 0)
+    edges = [(tr, [(0.0, 0)], 600.0), (tr, [(0.0, 0), (300.0, 1), (450.0, 0), (500.0, 2)], 550.0),
+             (tr, [(0.0, 5), (100.0, 1)], 600.0), (tr, [(0.0, 2), (200.0, 0), (400.0, 2)], 600.0),
+             (tr, [(0.0, 1), (590.0, 8)], 595.0), (tr, [(0.0, 1), (200.0, 3)], 300.0),
+             (tr, [(0.0, 1), (200.0, 3)], None),
+             (tr, [(50.0 * i, (i * 5) % 13) for i in range(12)], 600.0),    # e_pad 16, k_pad 48
+             (tr, [(0.0, 12), (300.0, 2)], 600.0), (tr, [(0.0, 0)], 300.0),
+             (tr, [(0.0, 1)], 600.0), (tr, [(0.0, 50)], None),
+             (cut(make_trace("poisson", 1.0, 600.0, 1), 1), [(0.0, 1), (5.0, 2)], 600.0),
+             (cut(make_trace("poisson", 1.0, 600.0, 1), 1), [(0.0, 1)], 600.0)]
+    for n in (256, 257, 384):
+        big = cut(make_trace("mmpp", 2.0, 1800.0, n), n)
+        edges += [(big, [(0.0, 1), (600.0, 2), (900.0, 0), (1000.0, 3)], 1800.0),
+                  (big, [(0.0, 2)], 1800.0)]
+    edge_jobs = [QueueJob(t, ev, model, slo30, hz) for t, ev, hz in edges]
+    rng = np.random.default_rng(7)
+    pw192 = []
+    for seed in range(192):
+        tr = make_trace(kinds[seed % 4], float(rng.uniform(0.1, 0.5)), 7200.0, 500 + seed)
+        ev = [(0.0, int(rng.integers(1, 5)))]
+        for _ in range(int(rng.integers(5, 21))):
+            ev.append((float(rng.uniform(0.0, 7200.0)), int(rng.integers(0, 5))))
+        pw192.append(QueueJob(tr, tuple(ev), model, slo30, horizon=7200.0))
+    dedicated = [QueueJob(make_trace(a, 2.0, 7200.0, 0), [(0.0, nodes)], model, slo30, 7200.0)
+                 for a in ("poisson", "mmpp", "flash_crowd") for nodes in (8, 12, 16)]
+    return {"random": random_jobs, "edges": edge_jobs, "piecewise_192": pw192,
+            "dedicated_8_12_16": dedicated, "wide_long": wide_long_jobs()}
+
+
+def wide_long_jobs():
+    """Jobs as wide and long as the ``full`` grid's, and more: 7.7k-28k
+    requests (n_pad 8192-32768) over 7200 s, piecewise capacity of 68-120
+    slots a level with zero and low levels between (queues that build up
+    and drain), one schedule up to 480 slots whose closed interval runs
+    past its horizon (the heap drain), a horizon before the trace's end,
+    and constant 68 and 120 slots."""
+    import numpy as np
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads import QueueJob, make_trace
+    model, slo30 = ServiceTimeModel(), SLOConfig(latency_target_s=30.0)
+    rng = np.random.default_rng(11)
+    jobs = []
+    fixed = [(0.0, 120), (900.0, 6), (1800.0, 0), (2100.0, 90), (3600.0, 2), (4500.0, 72),
+             (6000.0, 0), (6300.0, 100)]
+    for i, kind in enumerate(("mmpp", "diurnal", "flash_crowd", "poisson")):
+        ev = fixed if i == 0 else [(0.0, int(rng.integers(17, 31)))]
+        for _ in range(0 if i == 0 else int(rng.integers(10, 31))):
+            ev.append((float(rng.uniform(0.0, 7200.0)), int(rng.integers(0, 31))))
+        jobs.append(QueueJob(make_trace(kind, 2.2, 7200.0, 900 + i), ev, model, slo30,
+                             (6200.0, 7200.0, 5000.0, 7200.0)[i]))
+    for nodes in (17, 30):
+        jobs.append(QueueJob(make_trace("mmpp", 2.2, 7200.0, 950 + nodes), [(0.0, nodes)],
+                             model, slo30, 7200.0))
+    return jobs
+
+
+def assert_golden(m, ref, ctx, rtol=3e-4, atol=2e-3):
+    """float32 batched metrics vs the float64 oracle, as
+    ``tests/test_queueing_equivalence.py:48`` states the tolerance (a few
+    served/unserved flips at window and horizon edges; after a flip only the
+    count is compared)."""
+    import math
+    if m.n_requests != ref.n_requests or abs(m.unserved - ref.unserved) > max(
+            2, int(0.002 * max(ref.n_requests, 1))):
+        raise AssertionError(f"{ctx}: counts {m} vs {ref}")
+    if m.unserved != ref.unserved:
+        return
+    for f in ("p50_s", "p95_s", "p99_s", "mean_s", "max_s", "mean_wait_s", "violation_rate"):
+        a, b = getattr(m, f), getattr(ref, f)
+        if not ((math.isinf(a) and math.isinf(b)) or abs(a - b) <= atol + rtol * abs(b)):
+            raise AssertionError(f"{ctx}: {f} {a} vs oracle {b}")
+
+
+def bucket_tensors(torch, jobs, dev):
+    """[(key, rows, kind, tensors on dev, k_pad)] for each shape bucket of jobs."""
+    from repro_torch.workloads import queueing as Q
+    buckets, caps = Q._plan(jobs)
+    out = []
+    for key, rows in sorted(buckets.items()):
+        kind, *arrays, k_pad = Q.bucket_inputs(jobs, key, rows, caps)
+        out.append((key, rows, kind, [torch.from_numpy(a).to(dev) for a in arrays], k_pad))
+    return out
+
+
+def check_queue(torch, dev):
+    """The queue kernel against its plain version (on the CPU, the same
+    float32 arithmetic) on every check set, bucket by bucket: all columns
+    but the two sums bit-equal, the sums within 1e-5 relative; the card's
+    metrics against the float64 oracle under the golden tolerance; and a
+    job's metrics alone and co-batched, on the card, the same bits."""
+    from repro_torch.kernels.queue_core.ops import queue_core
+    from repro_torch.kernels.queue_core.ref import queue_core_reference
+    from repro_torch.workloads import queueing as Q
+    worst = 0.0
+    sets = queue_sets()
+    for name, jobs in sets.items():
+        max_rel, buckets = 0.0, 0
+        for key, rows, kind, tensors, k_pad in bucket_tensors(torch, jobs, dev):
+            got = queue_core(kind, *tensors, k_pad).cpu()
+            want = queue_core_reference(kind, *(x.cpu() for x in tensors), k_pad)
+            if not torch.equal(got[:, QUEUE_EXACT], want[:, QUEUE_EXACT]):
+                raise AssertionError(f"queue_core {name} {key}: {got} vs plain {want}")
+            rel = ((got[:, QUEUE_SUMS] - want[:, QUEUE_SUMS]).abs()
+                   / want[:, QUEUE_SUMS].abs().clamp(min=1e-30)).max().item()
+            if not rel <= 1e-5:
+                raise AssertionError(f"queue_core {name} {key}: sums off by {rel}")
+            fin = torch.isfinite(want)
+            worst = max(worst, (got[fin] - want[fin]).abs().max().item())
+            max_rel, buckets = max(max_rel, rel), buckets + 1
+        card = Q.simulate_queue_batch(jobs, device=dev)
+        for i, (job, m) in enumerate(zip(jobs, card)):
+            ref = Q.simulate_queue(job.trace, job.capacity_events, job.model, job.slo,
+                                   horizon=job.horizon)
+            assert_golden(m, ref, f"{name} job {i}")
+        emit({"phase": "check", "kernel": "queue_core", "set": name, "jobs": len(jobs),
+              "requests": sum(len(j.trace) for j in jobs), "buckets": buckets,
+              "exact_columns_bit_equal": True, "sums_max_rel_err": max_rel, "tol": 1e-5,
+              "oracle_golden_tolerance": True})
+    jobs = sets["random"][:8] + sets["edges"][:6]
+    grouped = Q.simulate_queue_batch(jobs, device=dev)
+    if any(Q.simulate_queue_batch([j], device=dev)[0] != m for j, m in zip(jobs, grouped)):
+        raise AssertionError("queue_core: a job's metrics depend on its batch")
+    emit({"phase": "check", "kernel": "queue_core", "case": "composition independence",
+          "jobs": len(jobs), "bit_identical": True})
+    return worst
+
+
+def campaign_traced(torch, out_dir: Path):
+    """``python -m repro_torch.workloads.campaign --grid mix_tiny --trace DIR``
+    on the card (its defaults), the launch count zeroed just before and the
+    plain queue core raising until it ends: the traces must equal the
+    goldens byte for byte, the kernel must have launched once per bucket of
+    each chunk, and the rows must agree with the same call's ``--device
+    cpu`` run (deterministic columns equal, queue columns within the golden
+    tolerance). Returns the launch count."""
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import campaign as C
+    from repro_torch.workloads.queueing import plan_queue_buckets
+    trace_dir, out = out_dir / "traces", out_dir / "mix_tiny.json"
+
+    def plain_forbidden(*args, **kwargs):
+        raise AssertionError("the plain queue core ran on the main path")
+
+    saved = ops.queue_core_reference
+    ops.queue_core_reference = plain_forbidden
+    ops.queue_core.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = C.main(["--grid", "mix_tiny", "--trace", str(trace_dir), "--out", str(out)])
+        wall = time.perf_counter() - t0
+    finally:
+        launches = ops.queue_core.launches
+        ops.queue_core_reference = saved
+    golden = ROOT / "goldens" / "mix_tiny_traces"
+    names = sorted(p.name for p in golden.glob("*.trace.jsonl"))
+    same = [n for n in names if (trace_dir / n).is_file()
+            and (trace_dir / n).read_bytes() == (golden / n).read_bytes()]
+    cells = C.make_grid("mix_tiny")
+    want = 0
+    for i in range(0, len(cells), C.QUEUE_CHUNK):
+        jobs = [j for c in cells[i:i + C.QUEUE_CHUNK] for j in C._cell_start(c).jobs]
+        want += len(plan_queue_buckets(jobs))
+    card = json.loads(out.read_text())
+    cpu_out = out_dir / "mix_tiny_cpu.json"
+    C.main(["--grid", "mix_tiny", "--device", "cpu", "--out", str(cpu_out)])
+    cpu = json.loads(cpu_out.read_text())
+    queue_keys = ("ws_p50_s", "ws_p95_s", "ws_p99_s", "ws_violation_rate")
+    diffs = []
+    for a, b in zip(card["cells"], cpu["cells"]):
+        for k in C.REDUCE_KEYS:
+            x, y = a["metrics"][k], b["metrics"][k]
+            if k in queue_keys:
+                ok = abs(x - y) <= 2e-3 + 3e-4 * abs(y)
+            elif k == "ws_unserved":
+                ok = abs(x - y) <= max(2, 0.002 * a["ws_requests"])
+            else:
+                ok = x == y
+            if not ok:
+                diffs.append((a["cell_id"], k, x, y))
+    emit({"phase": "campaign_traced", "grid": "mix_tiny", "cells": card["n_cells"],
+          "exit_code": rc, "wall_s": wall, "traces_equal_goldens": f"{len(same)}/{len(names)}",
+          "launches": launches, "launches_expected": want,
+          "queue_impls": card["throughput"]["queue_impls"],
+          "rows_agree_with_cpu_run": not diffs})
+    if rc != 0 or len(same) != len(names) or len(names) != 7:
+        raise AssertionError(f"mix_tiny traces on the card differ from the goldens: {same}")
+    if launches != want or card["throughput"]["queue_impls"] != {"cuda_batched": 14}:
+        raise AssertionError(f"queue_core launches {launches} != {want}")
+    if diffs:
+        raise AssertionError(f"card and CPU campaign rows disagree: {diffs[:5]}")
+    return launches
+
+
+def campaign_full_shard(torch, out_dir: Path):
+    """``--grid full --shard 0/252`` on the card (24 cells, 3 chunks): cells/s
+    and queue requests/s from the artifact, each flush's host wall time
+    against its device time (CUDA events around each launch), and each
+    launch's ms and ns per request of its longest job (the recurrence's
+    chain). Returns (launches, the first chunk's launch inputs)."""
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import campaign as C, queueing as Q
+    flushes, launches_in = [], []
+    real_core, real_batch = Q.queue_core, C.simulate_queue_batch
+
+    def timed_core(kind, t, s, n_valid, *rest):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_core(kind, t, s, n_valid, *rest)
+        end.record()
+        launches_in.append(((kind, t, s, n_valid, *rest), start, end))
+        return out
+
+    def timed_batch(jobs, **kw):
+        first = len(launches_in)
+        t0 = time.perf_counter()
+        res = real_batch(jobs, **kw)
+        flushes.append((time.perf_counter() - t0, first, len(launches_in)))
+        return res
+
+    Q.queue_core, C.simulate_queue_batch = timed_core, timed_batch
+    ops.queue_core.launches = 0
+    out = out_dir / "full_shard.json"
+    try:
+        t0 = time.perf_counter()
+        rc = C.main(["--grid", "full", "--shard", "0/252", "--out", str(out)])
+        wall = time.perf_counter() - t0
+    finally:
+        Q.queue_core, C.simulate_queue_batch = real_core, real_batch
+        launches = ops.queue_core.launches
+    torch.cuda.synchronize()
+    art = json.loads(out.read_text())
+    tp = art["throughput"]
+    per_launch = []
+    for (kind, t, s, n_valid, *_), start, end in launches_in:
+        ms = start.elapsed_time(end)
+        longest = int(n_valid.max())
+        per_launch.append({"kind": kind, "jobs": int(t.shape[0]), "n_pad": int(t.shape[1]),
+                           "requests": int(n_valid.sum()), "longest_job": longest, "ms": ms,
+                           "ns_per_request_longest": ms * 1e6 / longest})
+    flush_rows = [{"wall_ms": w * 1e3, "device_ms": sum(r["ms"] for r in per_launch[a:b]),
+                   "launches": b - a} for w, a, b in flushes]
+    sim_s = sum(r["metrics"]["wall_s"] for r in art["cells"]) - tp["queue_sim_s"]
+    emit({"phase": "campaign_full", "grid": "full", "shard": "0/252", "exit_code": rc,
+          "cells": art["n_cells"], "wall_s": wall, "run_wall_s": tp["run_wall_s"],
+          "cells_per_s": tp["cells_per_s"], "queue_requests": tp["queue_requests"],
+          "queue_sim_s": tp["queue_sim_s"], "queue_requests_per_s": tp["queue_requests_per_s"],
+          "host_sim_s": sim_s, "queue_impls": tp["queue_impls"], "launches": launches,
+          "flushes": flush_rows, "kernel_launches": per_launch,
+          "inf_rate": art["reductions"]["overall"]["inf_rate"]})
+    if rc != 0 or art["n_cells"] != 24 or launches == 0 or set(tp["queue_impls"]) != {
+            "cuda_batched"}:
+        raise AssertionError(f"full shard on the card: rc {rc}, {art['n_cells']} cells, "
+                             f"{launches} launches, {tp['queue_impls']}")
+    first = [args for args, *_ in launches_in[flushes[0][1]:flushes[0][2]]]
+    return launches, first
+
+
+def queue_bytes(t, n_valid, cap_t) -> int:
+    """Bytes the queue core must move: t and s once for each valid request
+    (8 B), the capacity tables (12 B an interval), n_valid, horizon, SLO and
+    the [B, 8] float32 result."""
+    B, E = cap_t.shape
+    return 8 * int(n_valid.sum()) + 12 * B * E + 12 * B + 32 * B
+
+
+def measure_queue(torch, peak, name, buckets) -> dict:
+    """Device time of one flush (every bucket launched once) against the
+    plain version's on the same inputs on the card: the kernel's launches as
+    one CUDA graph of 20 flushes in 7 turns (``time_interleaved``), the
+    plain version (a Python loop over requests; not capturable) once. Each
+    bucket's kernel result is held against that plain run's: all columns
+    but the two sums bit-equal, the sums within 1e-5 relative. Bound:
+    bytes over HBM rate. What limits the kernel is the chain: the buckets
+    run one after another, each as long as its longest job, so
+    ``chain_ns_per_request`` is the flush's time over the sum of the
+    buckets' longest jobs."""
+    from repro_torch.kernels.queue_core.ops import queue_core
+    from repro_torch.kernels.queue_core.ref import queue_core_reference
+
+    def flush(*_):
+        for args in buckets:
+            queue_core(*args)
+
+    turns = time_interleaved(torch, {"kernel": flush}, [()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wants = [queue_core_reference(*args) for args in buckets]
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    worst = max_rel = 0.0
+    for args, want in zip(buckets, wants):
+        got = queue_core(*args)
+        if not torch.equal(got[:, QUEUE_EXACT], want[:, QUEUE_EXACT]):
+            raise AssertionError(f"queue_core {name} {args[0]} n_pad {args[1].shape[1]}: "
+                                 f"{got.cpu()} vs plain {want.cpu()}")
+        rel = ((got[:, QUEUE_SUMS] - want[:, QUEUE_SUMS]).abs()
+               / want[:, QUEUE_SUMS].abs().clamp(min=1e-30)).max().item()
+        if not rel <= 1e-5:
+            raise AssertionError(f"queue_core {name} {args[0]}: sums off by {rel}")
+        fin = torch.isfinite(want)
+        worst = max(worst, (got[fin] - want[fin]).abs().max().item())
+        max_rel = max(max_rel, rel)
+    emit({"phase": "check", "kernel": "queue_core", "set": name, "buckets": len(buckets),
+          "jobs": sum(int(a[1].shape[0]) for a in buckets),
+          "requests": sum(int(a[3].sum()) for a in buckets),
+          "slots_max": max(int(a[7].max()) for a in buckets),
+          "exact_columns_bit_equal": True, "sums_max_rel_err": max_rel, "tol": 1e-5})
+    nbytes = sum(queue_bytes(a[1], a[3], a[6]) for a in buckets)
+    chain = sum(int(a[3].max()) for a in buckets)
+    ms = turns["kernel"]["median"]
+    return {**measured(ms, plain, None, 0, nbytes, peak[2], peak[1]), "max_abs_err": worst,
+            "min_max_ms": turns["kernel"]["min_max"], "eager_ms": turns["kernel"]["eager_ms"],
+            "buckets": [[a[0], *a[1].shape] for a in buckets],
+            "requests": sum(int(a[3].sum()) for a in buckets), "chain_requests": chain,
+            "chain_ns_per_request": ms * 1e6 / chain}
+
+
 def main() -> int:
     try:
         import torch
@@ -902,6 +1271,15 @@ def main() -> int:
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
+    queue_err = check_queue(torch, dev)
+    campaign_dir = ROOT / "build" / "chip_smoke_campaign"
+    queue_launches = {"mix_tiny, traced": campaign_traced(torch, campaign_dir)}
+    queue_launches["full, shard 0/252"], full_chunk = campaign_full_shard(torch, campaign_dir)
+    queue_full_t = measure_queue(torch, peak, "full, shard 0/252, first chunk", full_chunk)
+    queue_192_t = measure_queue(torch, peak, "piecewise_192", [
+        (kind, *tensors, k_pad) for _, _, kind, tensors, k_pad
+        in bucket_tensors(torch, queue_sets()["piecewise_192"], dev)])
+    queue_err = max(queue_err, queue_full_t.pop("max_abs_err"), queue_192_t.pop("max_abs_err"))
     for cfg, S in small_configs():
         check_small_model(torch, dev, cfg, S)
 
@@ -940,6 +1318,15 @@ def main() -> int:
         kernel_row("rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/"
                    "rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46",
                    rglru_err, rglru_t, launches["rglru_scan"]),
+        kernel_row("queue_core", "src/repro_torch/kernels/queue_core/csrc/queue_core.cu",
+                   "src/repro/workloads/queueing.py:598", queue_err, queue_full_t,
+                   queue_launches, shape="full grid, shard 0/252, first chunk's flush",
+                   replaces_all=["src/repro/workloads/queueing.py:491 (_device_fold)",
+                                 "src/repro/workloads/queueing.py:556 (_kw_batched_core)",
+                                 "src/repro/workloads/queueing.py:598 (_pw_batched_core)"],
+                   replaces_kind="XLA programs (jit(vmap(lax.scan))), not Pallas",
+                   piecewise_192=shape_figures("192 piecewise jobs, 7200 s", queue_err,
+                                               queue_192_t)),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

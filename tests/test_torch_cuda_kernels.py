@@ -534,3 +534,241 @@ def test_launcher_defaults_serve_on_the_card(cuda, arch, monkeypatch):
     want = {r.req_id: r.done for r in cpu["completed"]}
     assert got.keys() == want.keys() and len(got) == 32
     assert all(np.array_equal(got[i], want[i]) for i in want)
+
+
+# ------------------------------------------------------- batched queue core
+
+QUEUE_EXACT_COLS = [0, 1, 2, 3, 5, 7]     # FOLD_COLS but the two sums (mean, mean wait)
+QUEUE_SUM_COLS = [4, 6]
+
+
+def _queue_trace(kind, rate, horizon, seed, n=None):
+    from repro_torch.workloads.arrivals import RequestTrace, make_trace
+    tr = make_trace(kind, rate, horizon, seed)
+    if n is not None:
+        tr = RequestTrace(tr.t[:n], tr.prompt_tokens[:n], tr.decode_tokens[:n], tr.kind)
+    return tr
+
+
+def _random_capacity(rng, horizon, max_nodes=10, max_steps=12):
+    """Random piecewise capacity with zero levels (as the JAX package's tests draw it)."""
+    ev = [(0.0, int(rng.integers(0, max_nodes)))]
+    for _ in range(int(rng.integers(0, max_steps))):
+        ev.append((float(rng.uniform(0.0, horizon)), int(rng.integers(0, max_nodes))))
+    return ev
+
+
+def _queue_jobs(seed, n_jobs=8, horizon=1800.0):
+    """Random piecewise and constant jobs of four arrival kinds."""
+    import numpy as np
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads.queueing import QueueJob
+    rng = np.random.default_rng(seed)
+    kinds = ("poisson", "mmpp", "diurnal", "flash_crowd")
+    jobs = []
+    for i in range(n_jobs):
+        tr = _queue_trace(kinds[i % 4], float(rng.uniform(0.4, 3.0)), horizon, seed + i)
+        ev = [(0.0, int(rng.integers(0, 8)))] if i % 3 == 2 else _random_capacity(rng, horizon)
+        jobs.append(QueueJob(tr, ev, ServiceTimeModel(), SLOConfig(latency_target_s=30.0),
+                             horizon))
+    return jobs
+
+
+def _queue_edge_jobs():
+    """k = 0 intervals, capacity 0 throughout, the horizon at half the trace
+    and None, one request, n at the 256/257/384 bucket edges, more than 8
+    intervals and more than 32 slots, constant k = 0, 1 and 50."""
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads.queueing import QueueJob
+    model, slo = ServiceTimeModel(), SLOConfig(latency_target_s=30.0)
+    tr = _queue_trace("poisson", 1.0, 600.0, 0)
+    steps12 = [(50.0 * i, (i * 5) % 13) for i in range(12)]
+    cases = [
+        (tr, [(0.0, 0)], 600.0), (tr, [(0.0, 0), (300.0, 1), (450.0, 0), (500.0, 2)], 550.0),
+        (tr, [(0.0, 5), (100.0, 1)], 600.0), (tr, [(0.0, 2), (200.0, 0), (400.0, 2)], 600.0),
+        (tr, [(0.0, 1), (590.0, 8)], 595.0), (tr, [(0.0, 1), (200.0, 3)], 300.0),
+        (tr, [(0.0, 1), (200.0, 3)], None), (tr, steps12, 600.0),
+        (tr, [(0.0, 12), (300.0, 2)], 600.0),
+        (_queue_trace("poisson", 1.0, 600.0, 1, n=1), [(0.0, 1), (5.0, 2)], 600.0),
+        (tr, [(0.0, 0)], 300.0), (tr, [(0.0, 1)], 600.0), (tr, [(0.0, 50)], None),
+    ]
+    for n in (256, 257, 384):
+        big = _queue_trace("mmpp", 2.0, 1800.0, n, n=n)
+        cases += [(big, [(0.0, 1), (600.0, 2), (900.0, 0), (1000.0, 3)], 1800.0),
+                  (big, [(0.0, 2)], 1800.0)]
+    return [QueueJob(t, ev, model, slo, hz) for t, ev, hz in cases]
+
+
+def _queue_wide_long_jobs():
+    """Jobs as wide and long as the ``full`` grid's and more: 7.7k-28k
+    requests over 7200 s, piecewise levels of 68-120 slots with zero and low
+    levels between, one schedule up to 480 slots closed past its horizon
+    (the heap drain), and constant 68 and 120 slots."""
+    import numpy as np
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads.queueing import QueueJob
+    model, slo = ServiceTimeModel(), SLOConfig(latency_target_s=30.0)
+    rng = np.random.default_rng(11)
+    jobs = []
+    fixed = [(0.0, 120), (900.0, 6), (1800.0, 0), (2100.0, 90), (3600.0, 2), (4500.0, 72),
+             (6000.0, 0), (6300.0, 100)]
+    for i, kind in enumerate(("mmpp", "diurnal", "flash_crowd", "poisson")):
+        ev = fixed if i == 0 else [(0.0, int(rng.integers(17, 31)))]
+        for _ in range(0 if i == 0 else int(rng.integers(10, 31))):
+            ev.append((float(rng.uniform(0.0, 7200.0)), int(rng.integers(0, 31))))
+        jobs.append(QueueJob(_queue_trace(kind, 2.2, 7200.0, 900 + i), ev, model, slo,
+                             (6200.0, 7200.0, 5000.0, 7200.0)[i]))
+    for nodes in (17, 30):
+        jobs.append(QueueJob(_queue_trace("mmpp", 2.2, 7200.0, 950 + nodes), [(0.0, nodes)],
+                             model, slo, 7200.0))
+    return jobs
+
+
+def _hold_queue_kernel_to_plain(jobs):
+    """Every bucket of ``jobs`` through the kernel (one launch) and through
+    the plain version on the same inputs: all columns but the two sums
+    bit-equal, the sums within 1e-5 relative."""
+    from repro_torch.kernels.queue_core import ops, ref
+    from repro_torch.workloads import queueing as Q
+    buckets, caps = Q._plan(jobs)
+    assert buckets
+    for key, rows in sorted(buckets.items()):
+        kind, *arrays, k_pad = Q.bucket_inputs(jobs, key, rows, caps)
+        before = ops.queue_core.launches
+        got = ops.queue_core(kind, *(torch.from_numpy(a).cuda() for a in arrays), k_pad)
+        want = ref.queue_core_reference(kind, *(torch.from_numpy(a) for a in arrays), k_pad)
+        torch.cuda.synchronize()
+        assert ops.queue_core.launches == before + 1
+        got = got.cpu()
+        assert got.shape == (len(rows), 8)
+        assert torch.equal(got[:, QUEUE_EXACT_COLS], want[:, QUEUE_EXACT_COLS]), (key, got, want)
+        assert torch.allclose(got[:, QUEUE_SUM_COLS], want[:, QUEUE_SUM_COLS],
+                              rtol=1e-5, atol=0), key
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_queue_kernel_matches_plain(cuda, seed):
+    _hold_queue_kernel_to_plain(_queue_jobs(seed))
+
+
+def test_queue_kernel_edges_match_plain(cuda):
+    _hold_queue_kernel_to_plain(_queue_edge_jobs())
+
+
+def test_queue_kernel_wide_long_jobs_match_plain(cuda):
+    """More than 64 slots and 8192 requests a job, where the slot vector
+    spans several warp widths and the loop runs past 8192 steps."""
+    from repro_torch.workloads import queueing as Q
+    jobs = _queue_wide_long_jobs()
+    buckets, caps = Q._plan(jobs)
+    assert max(key[1] for key in buckets) > 8192
+    assert max(Q.bucket_inputs(jobs, key, rows, caps)[-1] for key, rows in buckets.items()) > 64
+    _hold_queue_kernel_to_plain(jobs)
+
+
+def test_queue_kernel_matches_plain_on_the_full_grids_first_chunk(cuda):
+    """The queue jobs of the first chunk of ``--grid full --shard 0/252``
+    (its cells 0, 252, ..., 1764), the flush the campaign phase times."""
+    from repro_torch.workloads import campaign as C
+    cells = C.shard_cells(C.make_grid("full"), "0/252")[:C.QUEUE_CHUNK]
+    jobs = [j for c in cells for j in C._cell_start(c).jobs]
+    assert len(jobs) > 0
+    _hold_queue_kernel_to_plain(jobs)
+
+
+def test_queue_plain_version_is_the_same_on_the_card(cuda):
+    """The plain version on CUDA tensors against itself on the CPU, on the
+    full grid's first chunk's 8192 bucket (where the card once divided the
+    quantiles by 100 as a reciprocal product, one ulp off in a p99)."""
+    from repro_torch.kernels.queue_core import ref
+    from repro_torch.workloads import campaign as C
+    from repro_torch.workloads import queueing as Q
+    cells = C.shard_cells(C.make_grid("full"), "0/252")[:C.QUEUE_CHUNK]
+    jobs = [j for c in cells for j in C._cell_start(c).jobs]
+    buckets, caps = Q._plan(jobs)
+    kind, *arrays, k_pad = Q.bucket_inputs(jobs, ("pw", 8192), buckets[("pw", 8192)], caps)
+    cpu = ref.queue_core_reference(kind, *(torch.from_numpy(a) for a in arrays), k_pad)
+    card = ref.queue_core_reference(kind, *(torch.from_numpy(a).cuda() for a in arrays),
+                                    k_pad).cpu()
+    assert torch.equal(card[:, QUEUE_EXACT_COLS], cpu[:, QUEUE_EXACT_COLS]), (card, cpu)
+    assert torch.allclose(card[:, QUEUE_SUM_COLS], cpu[:, QUEUE_SUM_COLS], rtol=1e-5, atol=0)
+
+
+def test_queue_kernel_rejects_k_pad_below_a_jobs_slots(cuda):
+    """Eager: ValueError. Under graph capture the host cannot read cap_k, so
+    the kernel gives the offending job a NaN row and the others their own."""
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import queueing as Q
+    jobs = _queue_edge_jobs()[:3]
+    buckets, caps = Q._plan(jobs)
+    kind, *arrays, k_pad = Q.bucket_inputs(jobs, ("pw", 768), buckets[("pw", 768)], caps)
+    tensors = [torch.from_numpy(a).cuda() for a in arrays]
+    want = ops.queue_core(kind, *tensors, k_pad)
+    wide = tensors[6].clone()
+    wide[0, 0] = k_pad + 1
+    with pytest.raises(ValueError, match="k_pad"):
+        ops.queue_core(kind, *tensors[:6], wide, tensors[7], k_pad)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.queue_core(kind, *tensors[:6], wide, tensors[7], k_pad)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0]).all()
+    assert torch.equal(got[1:], want[1:])
+
+
+def test_queue_kernel_is_composition_independent(cuda):
+    """A job's metrics on the card are the same bits alone and co-batched."""
+    from repro_torch.workloads.queueing import simulate_queue_batch
+    jobs = _queue_jobs(42, n_jobs=6) + _queue_edge_jobs()[:4]
+    tags = []
+    grouped = simulate_queue_batch(jobs, stats_out=tags)
+    assert tags == ["cuda_batched"] * len(jobs)
+    for job, m in zip(jobs, grouped):
+        assert simulate_queue_batch([job], device="cuda")[0] == m
+
+
+def test_campaign_traces_on_the_card_match_the_goldens(cuda, tmp_path, monkeypatch):
+    """A traced mix_tiny campaign on the card, with the plain queue core made
+    to raise: the 7 traces equal the goldens byte for byte, and the kernel
+    launched once per bucket of each chunk."""
+    from pathlib import Path
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import campaign as C
+    from repro_torch.workloads.queueing import plan_queue_buckets
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain queue core ran on the card's path")
+
+    monkeypatch.setattr(ops, "queue_core_reference", forbidden)
+    cells = C.make_grid("mix_tiny")
+    before = ops.queue_core.launches
+    art = C.run_campaign(cells, trace_dir=str(tmp_path), grid_name="mix_tiny")
+    launches = ops.queue_core.launches - before
+    golden = Path(__file__).resolve().parents[1] / "goldens" / "mix_tiny_traces"
+    names = sorted(p.name for p in golden.glob("*.trace.jsonl"))
+    assert names == sorted(p.name for p in tmp_path.glob("*.trace.jsonl")) and len(names) == 7
+    for name in names:
+        assert (tmp_path / name).read_bytes() == (golden / name).read_bytes(), name
+    want = 0
+    for i in range(0, len(cells), C.QUEUE_CHUNK):
+        jobs = [j for c in cells[i:i + C.QUEUE_CHUNK] for j in C._cell_start(c).jobs]
+        want += len(plan_queue_buckets(jobs))
+    assert launches == want
+    assert art["throughput"]["queue_impls"] == {"cuda_batched": 14}
+
+
+def test_campaign_workers_are_spawned_and_stay_on_the_card(cuda, capfd):
+    """``--workers 2`` on the card: the pool is spawned (a forked child could
+    not use the parent's CUDA context), each worker flushes on the card, and
+    the reductions equal the serial run's."""
+    from repro_torch.workloads import campaign as C
+    cells = C.make_grid("small")[:16]                        # two chunks
+    serial = C.run_campaign(cells)
+    pooled = C.run_campaign(cells, workers=2)
+    assert "process pool unavailable" not in capfd.readouterr().err
+    assert pooled["reductions"] == serial["reductions"]
+    assert pooled["throughput"]["queue_impls"] == {"cuda_batched": 16}

@@ -29,6 +29,15 @@ assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))
 from repro_torch.launch import serve
 assert serve.main(['--device', 'cpu', '--requests', '2', '--max-batch', '2',
                    '--prompt-len', '4', '--max-new', '2']) == 0
+import os, tempfile
+from repro_torch.workloads import campaign
+with tempfile.TemporaryDirectory() as tmp:
+    out = os.path.join(tmp, 'campaign.json')
+    assert campaign.main(['--grid', 'mix_tiny', '--policy', 'paper', '--device', 'cpu',
+                          '--out', out]) == 0
+    assert os.path.exists(out)
+assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))
+               for m, mod in sys.modules.items() if mod is not None)
 print('imported', len(names))
 """
 
@@ -60,6 +69,7 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "served 2 requests" in proc.stdout
+    assert "campaign grid=mix_tiny cells=1" in proc.stdout
     assert int(proc.stdout.split("imported")[-1]) >= 15
 
 
