@@ -8,7 +8,7 @@ Phases, each of which fails the run on any error:
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
    flash, decode, mLSTM and scan instance its registers and spills
-   (``-Xptxas -v``)
+   (``-Xptxas -v``; a queue register instance may have no stack frame)
    and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
    that spills, or a tensor-core instance -- bf16 flash, the mLSTM state and
    output passes -- that lacks either, fails the run);
@@ -50,20 +50,25 @@ Phases, each of which fails the run on any error:
    each served model: kernel time by name (the top eight and every kernel of
    the port) and the device's idle share; for xlstm-1.3b also the wall time
    of one mLSTM and one sLSTM block;
-6. campaign: the batched WS request-queue kernel (``queue_core``) against its
-   plain version on random jobs of both capacity kinds, the CPU tests'
-   edges, the 192-job piecewise set and the dedicated-node constant set
-   (every column but the two sums bit-equal, the sums within 1e-5
-   relative), against the float64 oracle (golden tolerance) and alone vs
-   co-batched (bit-identical); then ``python -m
+6. campaign: the batched WS request-queue kernel (``queue_flush``, one
+   launch a flush) against its plain version on random jobs of both
+   capacity kinds, the CPU tests' edges, the 192-job piecewise set, the
+   dedicated-node constant set, ``wide_long`` and jobs at each register
+   tier's edges (K 32/33 ... 512/513) and at 600 slots (the shared-memory
+   instance), one launch a set (every column but the two sums bit-equal, the
+   sums within 1e-5 relative), against the float64 oracle (golden
+   tolerance), alone vs co-launched and register vs shared-memory instance
+   (bit-identical), and the bucket form on the edges; then ``python -m
    repro_torch.workloads.campaign --grid mix_tiny --trace DIR`` on the card
-   with the launch count zeroed and the plain core raising (traces equal the
-   goldens byte for byte, one launch per bucket, rows agree with the
-   ``--device cpu`` run); ``--grid full --shard 0/252`` (cells/s, queue
-   requests/s, each flush's wall and device time, ms and ns a request of
-   each launch); and the kernel's device time for one flush of that run's
-   first chunk and of the 192-job set beside the plain version's.
-
+   with the launch count zeroed and the plain versions raising (traces equal
+   the goldens byte for byte, one launch a flush, rows agree with the
+   ``--device cpu`` run); ``--grid full --shard 0/252`` the same way
+   (cells/s, queue requests/s, each flush's wall and device time and ns a
+   request of its longest job); the kernel's device time for one flush of
+   that run's first chunk and of the 192-job set beside the plain
+   version's, its bytes bound and its chain bound (the longest job x 8
+   cycles at the SM clock ``nvidia-smi`` reads meanwhile); and the phase
+   clocks' shares of a block's cycles on both flushes (``queue_phases``).
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` (five rows: flash, decode, mLSTM,
 scan, queue core) and ``{"ok": true, "device": ...}``.
@@ -166,8 +171,11 @@ BUILD_REPORTS = {
     "decode_attention": ("decode_build", r"decode_split_kernel", None),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
     "rglru_scan": ("scan_build", r"rglru_scan_kernel", None),
-    "queue_core": ("queue_build", r"queue_core_kernel", None),
+    "queue_core": ("queue_build", r"queue_flush_kernel", None),
 }
+
+
+QUEUE_INSTANCES = [f"queue_flush<{r}>" for r in (0, 1, 2, 4, 8, 16)]
 
 
 def _instance_label(name: str, match) -> str:
@@ -197,11 +205,13 @@ def build_report(libs) -> None:
             if kind is None:
                 continue
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            frame = re.search(r"(\d+) bytes stack frame", body)
             instances[name] = {"instance": _instance_label(name, kind),
                                "registers": int(re.search(r"Used (\d+) registers",
                                                           body).group(1)),
                                "spill_stores": int(spill.group(1)),
-                               "spill_loads": int(spill.group(2))}
+                               "spill_loads": int(spill.group(2)),
+                               "stack_frame": int(frame.group(1)) if frame else None}
         if cuobjdump.is_file():
             sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
                                   capture_output=True, text=True, check=True,
@@ -221,6 +231,11 @@ def build_report(libs) -> None:
             if tensor_core and re.match(tensor_core, r["instance"]) and (
                     r.get("HGMMA", 1) == 0 or r.get("UTMALDG", 1) == 0):
                 raise AssertionError(f"{lib} instance {r} is off wgmma/TMA")
+        if lib == "queue_core":               # every slot tier built, register ones in registers
+            if {r["instance"] for r in rows} != set(QUEUE_INSTANCES):
+                raise AssertionError(f"queue_core instances {rows}")
+            if any(r["stack_frame"] for r in rows if r["instance"] != "queue_flush<0>"):
+                raise AssertionError(f"a queue_core register instance has a stack frame: {rows}")
 
 
 def check_flash(torch, gen, dev):
@@ -876,7 +891,6 @@ def time_xlstm_blocks(torch, pool):
 
 QUEUE_EXACT = [0, 1, 2, 3, 5, 7]       # FOLD_COLS but the two sums (mean, mean wait)
 QUEUE_SUMS = [4, 6]
-QUEUE_PATH = "src/repro_torch/workloads/queueing.py"
 
 
 def queue_sets():
@@ -934,7 +948,44 @@ def queue_sets():
     dedicated = [QueueJob(make_trace(a, 2.0, 7200.0, 0), [(0.0, nodes)], model, slo30, 7200.0)
                  for a in ("poisson", "mmpp", "flash_crowd") for nodes in (8, 12, 16)]
     return {"random": random_jobs, "edges": edge_jobs, "piecewise_192": pw192,
-            "dedicated_8_12_16": dedicated, "wide_long": wide_long_jobs()}
+            "dedicated_8_12_16": dedicated, "wide_long": wide_long_jobs(),
+            "many_intervals": many_interval_jobs()}
+
+
+MANY_INTERVALS = (33, 40, 64, 100)
+
+
+def many_interval_jobs():
+    """Piecewise jobs with more capacity intervals than a warp holds (33, 40,
+    64 and 100), so the kernel's cursor and its later windows run: intervals
+    of a few seconds to a minute that end while requests wait (the cursor
+    moves past them), closed ones (0 nodes), a run of 34 closed in a row
+    mid-schedule (the search goes on past the window once, then the cursor
+    jumps), a horizon inside the trace, and a schedule whose last 34
+    intervals are closed, from about 900 s of an 1,800 s horizon (every
+    later request searches every window, is unserved and drains the slots).
+    At most 8 nodes of 4 slots (K <= 32), so one flush's tables run on every
+    instance."""
+    import numpy as np
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads import QueueJob, make_trace
+    model, slo30 = ServiceTimeModel(), SLOConfig(latency_target_s=30.0)
+    rng = np.random.default_rng(13)
+    jobs = []
+    for i, E in enumerate(MANY_INTERVALS):
+        end = 1400 if i == 3 else 1800
+        times = np.sort(rng.choice(np.arange(1, end), E - 1, replace=False))
+        nodes = rng.integers(0, 9, E)
+        if i == 2:
+            nodes[E // 2 - 17:E // 2 + 17] = 0
+        if i == 3:
+            nodes[E - 34:] = 0
+        ev = [(0.0, int(nodes[0]))] + [(float(t), int(k)) for t, k in zip(times, nodes[1:])]
+        jobs.append(QueueJob(make_trace(("mmpp", "poisson", "diurnal", "flash_crowd")[i],
+                                        (2.5, 2.5, 2.5, 0.5)[i], 1800.0, 970 + i), ev, model,
+                             slo30, 1500.0 if i == 1 else 1800.0))
+    return jobs
 
 
 def wide_long_jobs():
@@ -982,95 +1033,163 @@ def assert_golden(m, ref, ctx, rtol=3e-4, atol=2e-3):
             raise AssertionError(f"{ctx}: {f} {a} vs oracle {b}")
 
 
-def bucket_tensors(torch, jobs, dev):
-    """[(key, rows, kind, tensors on dev, k_pad)] for each shape bucket of jobs."""
+def tier_jobs(K, horizon=600.0):
+    """Jobs at exactly K slots (one slot a replica): a piecewise schedule
+    that reaches K between lower levels, constant K, and a small job beside
+    them; K at a register tier's edge, or >= 513 for the shared-memory
+    instance."""
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads import QueueJob, make_trace
+    model, slo30 = ServiceTimeModel(max_batch=1), SLOConfig(latency_target_s=30.0)
+    tr = make_trace("mmpp", 3.0, horizon, K)
+    return [QueueJob(tr, [(0.0, max(K // 3, 1)), (horizon / 6, K), (horizon / 2, 2),
+                          (2 * horizon / 3, K)], model, slo30, horizon),
+            QueueJob(tr, [(0.0, K)], model, slo30, horizon),
+            QueueJob(make_trace("poisson", 1.0, horizon, K + 1), [(0.0, 3), (horizon / 3, 1)],
+                     model, slo30, 0.8 * horizon)]
+
+
+TIER_EDGES = (32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 600)
+INSTANCE_K_MAX = (32, 64, 128, 256, 512, 600)      # k_max that picks each instance
+
+
+def flush_tensors(torch, jobs, dev):
+    """(flat tables of one flush of ``jobs`` on ``dev``, k_max)."""
     from repro_torch.workloads import queueing as Q
-    buckets, caps = Q._plan(jobs)
-    out = []
-    for key, rows in sorted(buckets.items()):
-        kind, *arrays, k_pad = Q.bucket_inputs(jobs, key, rows, caps)
-        out.append((key, rows, kind, [torch.from_numpy(a).to(dev) for a in arrays], k_pad))
-    return out
+    caps = Q._job_caps(jobs)
+    buf, spans, k_max = Q.flush_inputs(jobs, [i for i, c in enumerate(caps) if c is not None],
+                                       caps)
+    return Q.flush_tensors(buf.to(dev), spans), k_max
+
+
+def hold_rows(torch, got, want, what) -> tuple:
+    """Kernel rows against plain rows: every column but the two sums
+    bit-equal, the sums within 1e-5 relative. Returns (max abs error over
+    the finite entries, the sums' max relative error)."""
+    got, want = got.cpu(), want.cpu()
+    if not torch.equal(got[:, QUEUE_EXACT], want[:, QUEUE_EXACT]):
+        raise AssertionError(f"queue_flush {what}: {got} vs plain {want}")
+    rel = ((got[:, QUEUE_SUMS] - want[:, QUEUE_SUMS]).abs()
+           / want[:, QUEUE_SUMS].abs().clamp(min=1e-30)).max().item()
+    if not rel <= 1e-5:
+        raise AssertionError(f"queue_flush {what}: sums off by {rel}")
+    fin = torch.isfinite(want)
+    return (got[fin] - want[fin]).abs().max().item(), rel
 
 
 def check_queue(torch, dev):
-    """The queue kernel against its plain version (on the CPU, the same
-    float32 arithmetic) on every check set, bucket by bucket: all columns
-    but the two sums bit-equal, the sums within 1e-5 relative; the card's
-    metrics against the float64 oracle under the golden tolerance; and a
-    job's metrics alone and co-batched, on the card, the same bits."""
-    from repro_torch.kernels.queue_core.ops import queue_core
-    from repro_torch.kernels.queue_core.ref import queue_core_reference
+    """The flat kernel (one launch a set) against its plain version on the
+    CPU (the same float32 arithmetic) on every check set and at each register
+    tier's edges and the shared-memory instance (K 513 and 600); the jobs of
+    33 to 100 intervals on every instance; the card's
+    metrics against the float64 oracle under the golden tolerance; a job's
+    metrics alone and co-launched, on the card, the same bits; and the
+    bucket form (the JAX package's shape buckets packed into the flat form)
+    on the edges."""
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.kernels.queue_core.ref import queue_core_reference, queue_flush_reference
     from repro_torch.workloads import queueing as Q
     worst = 0.0
-    sets = queue_sets()
+    sets = {**queue_sets(), **{f"K {k}": tier_jobs(k) for k in TIER_EDGES}}
     for name, jobs in sets.items():
-        max_rel, buckets = 0.0, 0
-        for key, rows, kind, tensors, k_pad in bucket_tensors(torch, jobs, dev):
-            got = queue_core(kind, *tensors, k_pad).cpu()
-            want = queue_core_reference(kind, *(x.cpu() for x in tensors), k_pad)
-            if not torch.equal(got[:, QUEUE_EXACT], want[:, QUEUE_EXACT]):
-                raise AssertionError(f"queue_core {name} {key}: {got} vs plain {want}")
-            rel = ((got[:, QUEUE_SUMS] - want[:, QUEUE_SUMS]).abs()
-                   / want[:, QUEUE_SUMS].abs().clamp(min=1e-30)).max().item()
-            if not rel <= 1e-5:
-                raise AssertionError(f"queue_core {name} {key}: sums off by {rel}")
-            fin = torch.isfinite(want)
-            worst = max(worst, (got[fin] - want[fin]).abs().max().item())
-            max_rel, buckets = max(max_rel, rel), buckets + 1
-        card = Q.simulate_queue_batch(jobs, device=dev)
-        for i, (job, m) in enumerate(zip(jobs, card)):
-            ref = Q.simulate_queue(job.trace, job.capacity_events, job.model, job.slo,
-                                   horizon=job.horizon)
-            assert_golden(m, ref, f"{name} job {i}")
+        args, k_max = flush_tensors(torch, jobs, dev)
+        before = ops.queue_flush.launches
+        got = ops.queue_flush(*args, k_max)
+        launched = ops.queue_flush.launches - before
+        err, rel = hold_rows(torch, got, queue_flush_reference(*(a.cpu() for a in args)), name)
+        worst = max(worst, err)
+        if not name.startswith("K "):
+            card = Q.simulate_queue_batch(jobs, device=dev)
+            for i, (job, m) in enumerate(zip(jobs, card)):
+                ref = Q.simulate_queue(job.trace, job.capacity_events, job.model, job.slo,
+                                       horizon=job.horizon)
+                assert_golden(m, ref, f"{name} job {i}")
         emit({"phase": "check", "kernel": "queue_core", "set": name, "jobs": len(jobs),
-              "requests": sum(len(j.trace) for j in jobs), "buckets": buckets,
-              "exact_columns_bit_equal": True, "sums_max_rel_err": max_rel, "tol": 1e-5,
-              "oracle_golden_tolerance": True})
+              "requests": sum(len(j.trace) for j in jobs), "k_max": k_max,
+              "instance": ops.INSTANCES[ops.slot_registers(k_max)], "launches": launched,
+              "exact_columns_bit_equal": True, "sums_max_rel_err": rel, "tol": 1e-5,
+              "oracle_golden_tolerance": not name.startswith("K ")})
+        if launched != 1:
+            raise AssertionError(f"queue_flush {name}: {launched} launches for one flush")
+    args, k_max = flush_tensors(torch, sets["many_intervals"], dev)
+    off = args[7].cpu()
+    if int((off[1:] - off[:-1]).min()) <= 32 or k_max > 32:
+        raise AssertionError("many_intervals: every job needs > 32 intervals, K <= 32")
+    want, rows = queue_flush_reference(*(a.cpu() for a in args)), {}
+    for k in INSTANCE_K_MAX:                    # the cursor and later windows, every instance
+        name = ops.INSTANCES[ops.slot_registers(k)]
+        rows[name] = ops.queue_flush(*args, k)
+        worst = max(worst, hold_rows(torch, rows[name], want, f"many_intervals, {name}")[0])
+    if not all(torch.equal(r, rows["registers_1"]) for r in rows.values()):
+        raise AssertionError("queue_core: many_intervals rows differ between instances")
+    emit({"phase": "check", "kernel": "queue_core", "set": "many_intervals",
+          "intervals": MANY_INTERVALS, "instances": sorted(rows),
+          "exact_columns_bit_equal": True, "rows_bit_identical_across_instances": True})
     jobs = sets["random"][:8] + sets["edges"][:6]
     grouped = Q.simulate_queue_batch(jobs, device=dev)
     if any(Q.simulate_queue_batch([j], device=dev)[0] != m for j, m in zip(jobs, grouped)):
-        raise AssertionError("queue_core: a job's metrics depend on its batch")
+        raise AssertionError("queue_core: a job's metrics depend on its flush")
+    alone, k_alone = flush_tensors(torch, sets["edges"], dev)
+    beside, k_beside = flush_tensors(torch, sets["edges"] + tier_jobs(600)[:1], dev)
+    rows = ops.queue_flush(*alone, k_alone)
+    if not torch.equal(rows, ops.queue_flush(*beside, k_beside)[:rows.shape[0]]):
+        raise AssertionError("queue_core: a job's row depends on the kernel instance")
     emit({"phase": "check", "kernel": "queue_core", "case": "composition independence",
-          "jobs": len(jobs), "bit_identical": True})
+          "jobs": len(jobs), "bit_identical": True,
+          "register_vs_shared_memory_instance_bit_identical": True})
+    buckets, caps = Q._plan(sets["edges"])
+    for key, rows in sorted(buckets.items()):
+        kind, *arrays, k_pad = Q.bucket_inputs(sets["edges"], key, rows, caps)
+        got = ops.queue_core(kind, *(torch.from_numpy(a).to(dev) for a in arrays), k_pad)
+        want = queue_core_reference(kind, *(torch.from_numpy(a) for a in arrays), k_pad)
+        worst = max(worst, hold_rows(torch, got, want, f"bucket form {key}")[0])
+    emit({"phase": "check", "kernel": "queue_core", "case": "bucket form", "set": "edges",
+          "buckets": len(buckets), "exact_columns_bit_equal": True})
     return worst
+
+
+def forbid_plain_queue():
+    """Make both plain queue versions raise; returns the function that
+    restores them."""
+    from repro_torch.kernels.queue_core import ops
+    saved = ops.queue_flush_reference, ops.queue_core_reference
+
+    def plain_forbidden(*args, **kwargs):
+        raise AssertionError("the plain queue core ran on the main path")
+
+    ops.queue_flush_reference = ops.queue_core_reference = plain_forbidden
+
+    def restore():
+        ops.queue_flush_reference, ops.queue_core_reference = saved
+    return restore
 
 
 def campaign_traced(torch, out_dir: Path):
     """``python -m repro_torch.workloads.campaign --grid mix_tiny --trace DIR``
     on the card (its defaults), the launch count zeroed just before and the
-    plain queue core raising until it ends: the traces must equal the
-    goldens byte for byte, the kernel must have launched once per bucket of
-    each chunk, and the rows must agree with the same call's ``--device
-    cpu`` run (deterministic columns equal, queue columns within the golden
+    plain queue versions raising until it ends: the traces must equal the
+    goldens byte for byte, the kernel must have launched once a chunk (one
+    flush), and the rows must agree with the same call's ``--device cpu``
+    run (deterministic columns equal, queue columns within the golden
     tolerance). Returns the launch count."""
     from repro_torch.kernels.queue_core import ops
     from repro_torch.workloads import campaign as C
-    from repro_torch.workloads.queueing import plan_queue_buckets
     trace_dir, out = out_dir / "traces", out_dir / "mix_tiny.json"
-
-    def plain_forbidden(*args, **kwargs):
-        raise AssertionError("the plain queue core ran on the main path")
-
-    saved = ops.queue_core_reference
-    ops.queue_core_reference = plain_forbidden
-    ops.queue_core.launches = 0
+    restore = forbid_plain_queue()
+    ops.reset_launches()
     try:
         t0 = time.perf_counter()
         rc = C.main(["--grid", "mix_tiny", "--trace", str(trace_dir), "--out", str(out)])
         wall = time.perf_counter() - t0
     finally:
-        launches = ops.queue_core.launches
-        ops.queue_core_reference = saved
+        launches = ops.queue_flush.launches
+        restore()
     golden = ROOT / "goldens" / "mix_tiny_traces"
     names = sorted(p.name for p in golden.glob("*.trace.jsonl"))
     same = [n for n in names if (trace_dir / n).is_file()
             and (trace_dir / n).read_bytes() == (golden / n).read_bytes()]
-    cells = C.make_grid("mix_tiny")
-    want = 0
-    for i in range(0, len(cells), C.QUEUE_CHUNK):
-        jobs = [j for c in cells[i:i + C.QUEUE_CHUNK] for j in C._cell_start(c).jobs]
-        want += len(plan_queue_buckets(jobs))
+    want = -(-len(C.make_grid("mix_tiny")) // C.QUEUE_CHUNK)
     card = json.loads(out.read_text())
     cpu_out = out_dir / "mix_tiny_cpu.json"
     C.main(["--grid", "mix_tiny", "--device", "cpu", "--out", str(cpu_out)])
@@ -1096,29 +1215,37 @@ def campaign_traced(torch, out_dir: Path):
     if rc != 0 or len(same) != len(names) or len(names) != 7:
         raise AssertionError(f"mix_tiny traces on the card differ from the goldens: {same}")
     if launches != want or card["throughput"]["queue_impls"] != {"cuda_batched": 14}:
-        raise AssertionError(f"queue_core launches {launches} != {want}")
+        raise AssertionError(f"queue_flush launches {launches} != {want}")
     if diffs:
         raise AssertionError(f"card and CPU campaign rows disagree: {diffs[:5]}")
     return launches
 
 
+def flush_shape(torch, args) -> dict:
+    """Jobs, requests and the longest job's requests of a flush's tables."""
+    off = args[3].cpu()
+    n = off[1:] - off[:-1]
+    return {"jobs": int(n.numel()), "requests": int(n.sum()), "longest_job": int(n.max())}
+
+
 def campaign_full_shard(torch, out_dir: Path):
-    """``--grid full --shard 0/252`` on the card (24 cells, 3 chunks): cells/s
-    and queue requests/s from the artifact, each flush's host wall time
-    against its device time (CUDA events around each launch), and each
-    launch's ms and ns per request of its longest job (the recurrence's
-    chain). Returns (launches, the first chunk's launch inputs)."""
+    """``--grid full --shard 0/252`` on the card (24 cells, 3 chunks), the
+    launch count zeroed just before and the plain queue versions raising
+    until it ends: cells/s and queue requests/s from the artifact, each
+    flush's host wall time against its device time (CUDA events around its
+    one launch), its ms and ns a request of its longest job (the chain).
+    Returns (launches, the first flush's tables, its k_max)."""
     from repro_torch.kernels.queue_core import ops
     from repro_torch.workloads import campaign as C, queueing as Q
     flushes, launches_in = [], []
-    real_core, real_batch = Q.queue_core, C.simulate_queue_batch
+    real_flush, real_batch = Q.queue_flush, C.simulate_queue_batch
 
-    def timed_core(kind, t, s, n_valid, *rest):
+    def timed_flush(*args, **kw):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = real_core(kind, t, s, n_valid, *rest)
+        out = real_flush(*args, **kw)
         end.record()
-        launches_in.append(((kind, t, s, n_valid, *rest), start, end))
+        launches_in.append((args, start, end))
         return out
 
     def timed_batch(jobs, **kw):
@@ -1128,102 +1255,125 @@ def campaign_full_shard(torch, out_dir: Path):
         flushes.append((time.perf_counter() - t0, first, len(launches_in)))
         return res
 
-    Q.queue_core, C.simulate_queue_batch = timed_core, timed_batch
-    ops.queue_core.launches = 0
+    Q.queue_flush, C.simulate_queue_batch = timed_flush, timed_batch
+    restore = forbid_plain_queue()
+    ops.reset_launches()
     out = out_dir / "full_shard.json"
     try:
         t0 = time.perf_counter()
         rc = C.main(["--grid", "full", "--shard", "0/252", "--out", str(out)])
         wall = time.perf_counter() - t0
     finally:
-        Q.queue_core, C.simulate_queue_batch = real_core, real_batch
-        launches = ops.queue_core.launches
+        Q.queue_flush, C.simulate_queue_batch = real_flush, real_batch
+        launches = ops.queue_flush.launches
+        restore()
     torch.cuda.synchronize()
     art = json.loads(out.read_text())
     tp = art["throughput"]
-    per_launch = []
-    for (kind, t, s, n_valid, *_), start, end in launches_in:
-        ms = start.elapsed_time(end)
-        longest = int(n_valid.max())
-        per_launch.append({"kind": kind, "jobs": int(t.shape[0]), "n_pad": int(t.shape[1]),
-                           "requests": int(n_valid.sum()), "longest_job": longest, "ms": ms,
-                           "ns_per_request_longest": ms * 1e6 / longest})
-    flush_rows = [{"wall_ms": w * 1e3, "device_ms": sum(r["ms"] for r in per_launch[a:b]),
-                   "launches": b - a} for w, a, b in flushes]
+    flush_rows = []
+    for w, a, b in flushes:
+        ms = sum(start.elapsed_time(end) for _, start, end in launches_in[a:b])
+        shape = flush_shape(torch, launches_in[a][0])
+        flush_rows.append({"wall_ms": w * 1e3, "device_ms": ms, "launches": b - a, **shape,
+                           "k_max": launches_in[a][0][-1],
+                           "ns_per_request_longest": ms * 1e6 / shape["longest_job"]})
     sim_s = sum(r["metrics"]["wall_s"] for r in art["cells"]) - tp["queue_sim_s"]
     emit({"phase": "campaign_full", "grid": "full", "shard": "0/252", "exit_code": rc,
           "cells": art["n_cells"], "wall_s": wall, "run_wall_s": tp["run_wall_s"],
           "cells_per_s": tp["cells_per_s"], "queue_requests": tp["queue_requests"],
           "queue_sim_s": tp["queue_sim_s"], "queue_requests_per_s": tp["queue_requests_per_s"],
           "host_sim_s": sim_s, "queue_impls": tp["queue_impls"], "launches": launches,
-          "flushes": flush_rows, "kernel_launches": per_launch,
-          "inf_rate": art["reductions"]["overall"]["inf_rate"]})
-    if rc != 0 or art["n_cells"] != 24 or launches == 0 or set(tp["queue_impls"]) != {
-            "cuda_batched"}:
+          "flushes": flush_rows, "inf_rate": art["reductions"]["overall"]["inf_rate"]})
+    if rc != 0 or art["n_cells"] != 24 or launches != len(flushes) or len(flushes) != 3 or \
+            any(r["launches"] != 1 for r in flush_rows) or \
+            set(tp["queue_impls"]) != {"cuda_batched"}:
         raise AssertionError(f"full shard on the card: rc {rc}, {art['n_cells']} cells, "
-                             f"{launches} launches, {tp['queue_impls']}")
-    first = [args for args, *_ in launches_in[flushes[0][1]:flushes[0][2]]]
-    return launches, first
+                             f"{launches} launches in {len(flushes)} flushes, "
+                             f"{tp['queue_impls']}")
+    first = launches_in[flushes[0][1]][0]
+    return launches, list(first[:-1]), first[-1]
 
 
-def queue_bytes(t, n_valid, cap_t) -> int:
-    """Bytes the queue core must move: t and s once for each valid request
-    (8 B), the capacity tables (12 B an interval), n_valid, horizon, SLO and
-    the [B, 8] float32 result."""
-    B, E = cap_t.shape
-    return 8 * int(n_valid.sum()) + 12 * B * E + 12 * B + 32 * B
+def queue_bytes(args) -> int:
+    """Bytes the queue core must move: t and s once for each request (8 B),
+    the capacity tables (12 B an interval), the job tables (kind, offsets,
+    horizon, SLO: 20 B a job) and the [J, 8] float32 result."""
+    J, N, E = args[0].numel(), args[1].numel(), args[4].numel()
+    return 8 * N + 12 * E + 20 * J + 32 * J
 
 
-def measure_queue(torch, peak, name, buckets) -> dict:
-    """Device time of one flush (every bucket launched once) against the
-    plain version's on the same inputs on the card: the kernel's launches as
-    one CUDA graph of 20 flushes in 7 turns (``time_interleaved``), the
-    plain version (a Python loop over requests; not capturable) once. Each
-    bucket's kernel result is held against that plain run's: all columns
-    but the two sums bit-equal, the sums within 1e-5 relative. Bound:
-    bytes over HBM rate. What limits the kernel is the chain: the buckets
-    run one after another, each as long as its longest job, so
-    ``chain_ns_per_request`` is the flush's time over the sum of the
-    buckets' longest jobs."""
-    from repro_torch.kernels.queue_core.ops import queue_core
-    from repro_torch.kernels.queue_core.ref import queue_core_reference
+def sm_clock_mhz(torch, fn, seconds: float = 2.0) -> list:
+    """The SM clock (MHz) that ``nvidia-smi`` reads every 100 ms while ``fn``
+    runs back to back for ``seconds``."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    return [float(x) for x in out.split() if re.fullmatch(r"\d+(\.\d+)?", x)]
+
+
+def measure_queue(torch, peak, name, args, k_max) -> dict:
+    """Device time of one flush (one launch) against the plain version's on
+    the same tables on the card: the kernel as one CUDA graph of 20 flushes
+    in 7 turns (``time_interleaved``), the plain version (a Python loop over
+    requests; not capturable) once, and the kernel's rows held against the
+    plain run's (every column but the two sums bit-equal, the sums within
+    1e-5 relative). Bounds: bytes over HBM rate (``bound_ms``), and the chain
+    -- the longest job x 8 cycles (one dependent fmaxf and one __fadd_rn) at
+    the SM clock read while the flush runs -- which is what binds."""
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.kernels.queue_core.ref import queue_flush_reference
 
     def flush(*_):
-        for args in buckets:
-            queue_core(*args)
+        ops.queue_flush(*args, k_max)
 
     turns = time_interleaved(torch, {"kernel": flush}, [()])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            flush()
+    clocks = sm_clock_mhz(torch, graph.replay)
+    if not clocks:
+        raise AssertionError("nvidia-smi read no SM clock")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wants = [queue_core_reference(*args) for args in buckets]
+    want = queue_flush_reference(*args)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
-    worst = max_rel = 0.0
-    for args, want in zip(buckets, wants):
-        got = queue_core(*args)
-        if not torch.equal(got[:, QUEUE_EXACT], want[:, QUEUE_EXACT]):
-            raise AssertionError(f"queue_core {name} {args[0]} n_pad {args[1].shape[1]}: "
-                                 f"{got.cpu()} vs plain {want.cpu()}")
-        rel = ((got[:, QUEUE_SUMS] - want[:, QUEUE_SUMS]).abs()
-               / want[:, QUEUE_SUMS].abs().clamp(min=1e-30)).max().item()
-        if not rel <= 1e-5:
-            raise AssertionError(f"queue_core {name} {args[0]}: sums off by {rel}")
-        fin = torch.isfinite(want)
-        worst = max(worst, (got[fin] - want[fin]).abs().max().item())
-        max_rel = max(max_rel, rel)
-    emit({"phase": "check", "kernel": "queue_core", "set": name, "buckets": len(buckets),
-          "jobs": sum(int(a[1].shape[0]) for a in buckets),
-          "requests": sum(int(a[3].sum()) for a in buckets),
-          "slots_max": max(int(a[7].max()) for a in buckets),
-          "exact_columns_bit_equal": True, "sums_max_rel_err": max_rel, "tol": 1e-5})
-    nbytes = sum(queue_bytes(a[1], a[3], a[6]) for a in buckets)
-    chain = sum(int(a[3].max()) for a in buckets)
+    worst, max_rel = hold_rows(torch, ops.queue_flush(*args, k_max), want, name)
+    shape = flush_shape(torch, args)
+    clock = sorted(clocks)[len(clocks) // 2]
     ms = turns["kernel"]["median"]
-    return {**measured(ms, plain, None, 0, nbytes, peak[2], peak[1]), "max_abs_err": worst,
-            "min_max_ms": turns["kernel"]["min_max"], "eager_ms": turns["kernel"]["eager_ms"],
-            "buckets": [[a[0], *a[1].shape] for a in buckets],
-            "requests": sum(int(a[3].sum()) for a in buckets), "chain_requests": chain,
-            "chain_ns_per_request": ms * 1e6 / chain}
+    chain_ms = shape["longest_job"] * 8 / (clock * 1e6) * 1e3
+    emit({"phase": "check", "kernel": "queue_core", "set": name, **shape, "k_max": k_max,
+          "instance": ops.INSTANCES[ops.slot_registers(k_max)],
+          "exact_columns_bit_equal": True, "sums_max_rel_err": max_rel, "tol": 1e-5})
+    figures = measured(ms, plain, None, 0, queue_bytes(args), peak[2], peak[1])
+    return {**figures, "max_abs_err": worst, "min_max_ms": turns["kernel"]["min_max"],
+            "eager_ms": turns["kernel"]["eager_ms"], **shape,
+            "instance": ops.INSTANCES[ops.slot_registers(k_max)],
+            "ns_per_request_longest": ms * 1e6 / shape["longest_job"],
+            "chain_bound_ms": chain_ms, "chain_bound_share": chain_ms / ms,
+            "binds": "chain" if chain_ms > figures["bound_ms"] else figures["bound_by"],
+            "sm_clock_mhz_median": clock, "sm_clock_mhz_min_max": [min(clocks), max(clocks)]}
+
+
+def queue_phases(torch, sets) -> None:
+    """Where a queue block's cycles go: the kernel built with its phase
+    clocks (``kernels/queue_core/phases.py``) on each flush of ``sets``
+    (name -> (tables, k_max))."""
+    from repro_torch.kernels.queue_core import phases
+    lib = phases.build()
+    for name, (args, k_max) in sets.items():
+        emit({"phase": "queue_phases", "set": name, **phases.measure(lib, args, k_max)})
 
 
 def main() -> int:
@@ -1271,14 +1421,18 @@ def main() -> int:
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
+    from repro_torch.kernels.queue_core import ops as queue_ops
     queue_err = check_queue(torch, dev)
     campaign_dir = ROOT / "build" / "chip_smoke_campaign"
     queue_launches = {"mix_tiny, traced": campaign_traced(torch, campaign_dir)}
-    queue_launches["full, shard 0/252"], full_chunk = campaign_full_shard(torch, campaign_dir)
-    queue_full_t = measure_queue(torch, peak, "full, shard 0/252, first chunk", full_chunk)
-    queue_192_t = measure_queue(torch, peak, "piecewise_192", [
-        (kind, *tensors, k_pad) for _, _, kind, tensors, k_pad
-        in bucket_tensors(torch, queue_sets()["piecewise_192"], dev)])
+    by_instance = {"mix_tiny, traced": dict(queue_ops.queue_flush.instance_launches)}
+    queue_launches["full, shard 0/252"], *full_chunk = campaign_full_shard(torch, campaign_dir)
+    by_instance["full, shard 0/252"] = dict(queue_ops.queue_flush.instance_launches)
+    set_192 = flush_tensors(torch, queue_sets()["piecewise_192"], dev)
+    queue_full_t = measure_queue(torch, peak, "full, shard 0/252, first chunk", *full_chunk)
+    queue_192_t = measure_queue(torch, peak, "piecewise_192", *set_192)
+    queue_phases(torch, {"full, shard 0/252, first chunk": full_chunk,
+                         "piecewise_192": set_192})
     queue_err = max(queue_err, queue_full_t.pop("max_abs_err"), queue_192_t.pop("max_abs_err"))
     for cfg, S in small_configs():
         check_small_model(torch, dev, cfg, S)
@@ -1321,6 +1475,7 @@ def main() -> int:
         kernel_row("queue_core", "src/repro_torch/kernels/queue_core/csrc/queue_core.cu",
                    "src/repro/workloads/queueing.py:598", queue_err, queue_full_t,
                    queue_launches, shape="full grid, shard 0/252, first chunk's flush",
+                   launches_by_instance=by_instance,
                    replaces_all=["src/repro/workloads/queueing.py:491 (_device_fold)",
                                  "src/repro/workloads/queueing.py:556 (_kw_batched_core)",
                                  "src/repro/workloads/queueing.py:598 (_pw_batched_core)"],

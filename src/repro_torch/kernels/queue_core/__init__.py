@@ -1,3 +1,3 @@
 """Batched WS request-queue core: CUDA kernel for Hopper and its plain PyTorch version."""
-from repro_torch.kernels.queue_core.ops import queue_core
-from repro_torch.kernels.queue_core.ref import queue_core_reference
+from repro_torch.kernels.queue_core.ops import queue_core, queue_flush
+from repro_torch.kernels.queue_core.ref import queue_core_reference, queue_flush_reference

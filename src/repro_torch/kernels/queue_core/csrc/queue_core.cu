@@ -1,51 +1,72 @@
-// Batched WS request-queue core for Hopper (sm_90a): FIFO M/G/k(t) over many
-// jobs (one job: one department's request trace under one capacity
-// schedule), with the metric fold in the same launch.
+// Batched WS request-queue core for Hopper (sm_90a): FIFO M/G/k(t) over every
+// job of a flush in one launch (one job: one department's request trace
+// under one capacity schedule), with the metric fold in the same launch.
 //
 // Replaces no Pallas kernel: it replaces the JAX package's XLA programs in
-// src/repro/workloads/queueing.py:491-671 -- _kw_batched_core (constant
-// capacity, the Kiefer-Wolfowitz recurrence), _pw_batched_core (piecewise
-// capacity k(t), a sorted slot vector) and _device_fold (the metric fold),
-// each jit(vmap(lax.scan)). Same function as ref.py in this package: t, s
-// [B, n_pad] float32, per job n_valid, horizon, SLO, capacity intervals
-// (cap_t, cap_k, hi_t) [B, e_pad]; out [B, 8] float32 in FOLD_COLS order.
+// src/repro/workloads/queueing.py -- _kw_batched_core (:556, constant
+// capacity, the Kiefer-Wolfowitz recurrence), _pw_batched_core (:598,
+// piecewise capacity k(t), a sorted slot vector) and _device_fold (:491, the
+// metric fold), each jit(vmap(lax.scan)) over one shape bucket. Same function
+// as ref.queue_flush_reference in this package. The inputs are flat tables
+// of ragged jobs of both kinds: job j's requests t, s [req_off[j], req_off[j]
+// + n_j) (n_j = n_valid[j] where given, else req_off[j + 1] - req_off[j]),
+// its capacity intervals (cap_t, cap_k, hi_t) [cap_off[j], cap_off[j + 1]),
+// its kind (0 constant, 1 piecewise), horizon and SLO; out [J, 8] float32 in
+// FOLD_COLS order.
 //
-// Bound on H100. The kernel reads t and s once (8 B a request), the
-// capacity tables once, and writes [B, 8]: at the campaign's 16-job chunk of
-// ~10k requests each that is ~1.3 MB, under a microsecond at 3.35 TB/s.
-// What limits it is the recurrence: request i+1's start depends on request
-// i's slot vector, so the floor is the longest job's dependency chain -- a
-// few hundred cycles a request (shared-memory loads, a warp min, a sorted
-// insert) times its n -- not bytes or operations.
-//
-// Design: one block a job, 256 threads.
-//   * Warp 0 runs the job's requests in order, to the job's own n (padding
-//     changes no carry). The slot vector (the job's own K = its largest k;
-//     the batch's k_pad only sizes shared memory, which changes no value) and
-//     the capacity tables stay in shared memory. Lanes load 32 requests at
-//     a time and hand them out by shuffles. A job whose K exceeds k_pad
-//     gets a NaN row and touches no shared memory past k_pad.
-//   * Constant capacity: start = max(t_i, min(free)); the vector is kept
-//     sorted, so min(free) is free[0], and giving the earliest-free slot the
-//     finish is "drop free[0], insert fin in order" (the same multiset as
-//     the argmin update). k = 0 serves nothing.
-//   * Piecewise: s0 = max(t_i, prev_start); each lane takes intervals e:
-//     thresh = free[clip(K - k_e, 0, K - 1)] (inf where k_e <= 0), lo =
-//     max(cap_t[e], thresh, s0), a candidate if lo < hi_t[e]; start is the
-//     warp's min. A served request drops free[0] and inserts fin in order
-//     (a ballot finds the place, the warp shifts the prefix); an unserved
-//     one with s0 < horizon sets every slot that frees before the horizon
-//     to 0 (the golden oracle's heap drain).
-//   * Each lane keeps the latencies of its own requests: counts, sums
-//     (float64), max and violations are folded on the way; the latencies go
-//     to a global scratch [B, n_pad] for the order statistics.
-//   * Fold, all 8 warps: the six order statistics (floor and ceil rank of
-//     p50, p95, p99) by binary search over the float32 bit space (31
-//     rounds; non-negative floats order as their bits), then numpy's linear
-//     rule in float32 with __fmul_rn/__fadd_rn, so no FMA contracts it and
-//     every column but the two sums matches the plain version bit for bit.
-// A job's row depends on that job alone, so co-batched jobs and the batch's
-// padding never change a bit of it.
+// Bound on H100. Bytes: t and s once (8 B a request), the capacity tables
+// and [J, 8]: ~1.6 MB for the campaign's 16-job flush, under a microsecond
+// at 3.35 TB/s. What binds is the chain: request i + 1's start depends on
+// request i's slot vector, so no exact sequential evaluation beats the
+// longest job's n times one dependent fmaxf and one __fadd_rn (8 cycles a
+// request). The design shortens the chain a request:
+//   * One block a job, all jobs of a flush in one launch: a flush lasts as
+//     long as its longest job, not the sum of shape buckets' longest jobs.
+//   * The sorted slot vector lives in warp 0's registers: slot j in lane
+//     j % 32, register j / 32, R registers a lane (a template parameter: 1,
+//     2, 4, 8 or 16, so K <= 512), picked on the host from the flush's
+//     largest K; slots at or past the job's own K hold +inf. The insert (drop
+//     free[0], put fin in order) needs no ballot: the vector being sorted,
+//     "below fin" marks a prefix, so slot j takes free[j + 1] if that is
+//     below fin, else fin if j == 0 or free[j] is below fin, else keeps
+//     free[j]. free[j + 1] comes by R shuffles that depend on the vector
+//     alone, so only two compares and two selects a register wait for fin:
+//     no shared memory and no __syncwarp on the chain.
+//   * Piecewise capacity: lane e of the window [wb, wb + 32) holds interval
+//     wb + e (start, end, whether it is open, and which slot g = K - k_e is
+//     its threshold). The lane keeps th = free[g] in a register and applies
+//     the insert's rule to it as the vector does to slot g (free[g + 1]
+//     fetched by shuffles off the chain), so a request's search starts from
+//     a register. For an interval that has not ended (s0 < hi), max(cap_t,
+//     th, s0) < hi iff a = max(cap_t, th) < hi, so start = max(s0, the least
+//     feasible a). The starts ascend from 0 (checked; a NaN row otherwise),
+//     so every a is a float that is not negative, and the least is one
+//     __reduce_min_sync over its bits. Every interval past the window starts
+//     at or after cap_t[wb + 32], so a later window is searched only while
+//     the min exceeds that: exactly the min over all intervals. The commit
+//     point prev never decreases, so once it passes an interval's end no
+//     later request can use it: where intervals remain past the window, the
+//     window base (the cursor) moves past those. A job with at most 32
+//     intervals (every campaign job) runs a loop without the cursor and the
+//     later windows: one loop for both ran the campaign's first flush 1.3x
+//     and the 192-job set 1.5x as long on an H100, though its extra tests
+//     are false there.
+//   * Constant capacity: start = max(t_i, free[0]); every lane keeps free[0]
+//     as its th.
+//   * t and s come 32 requests at a time, the next 32 loaded while these
+//     run, and are handed out by shuffles that do not depend on the state.
+//   * K > 512: the instance R = 0 keeps the slot vector in shared memory
+//     ([k_max] floats) with a ballot insert and a warp min over all
+//     intervals, as the first design did; the host chooses it by shape.
+//   * The fold, all 8 warps: the six order statistics (floor and ceil rank of
+//     p50, p95, p99) by binary search over the float32 bit space (31 rounds;
+//     non-negative floats order as their bits), then numpy's linear rule in
+//     float32 with __fmul_rn/__fadd_rn, so no FMA contracts it and every
+//     column but the two float64 sums matches the plain version bit for bit.
+// A job's row depends on that job alone: the other jobs of the flush, their
+// order and the instance never change a bit of it. A job whose K exceeds
+// k_max, whose interval starts descend or begin below 0, or that has no
+// interval gets a NaN row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,15 +80,77 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int NRANKS = 6;                     // floor and ceil rank of 3 quantiles
 constexpr int COLS = 8;
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
+// Phase clocks, compiled only with -DREPRO_QUEUE_PHASES (the diagnostic
+// build of kernels/queue_core/phases.py; the served library has none of
+// this). Thread 0 of each block adds up the clock() cycles of each phase as
+// it sees them and at the end stores them in queue_phase_cycles[block]:
+// PROLOGUE (the job's tables, K, the checks), LOADS (t and s, 32 requests at
+// a time, and each 32's latencies stored and summed), SEARCH (the hand-out
+// and the interval search: s0 to start), INSERT (fin, the insert or the
+// drain, the cursor), FOLD (the warp sums and the order statistics).
+enum Phase { PROLOGUE, LOADS, SEARCH, INSERT, FOLD, N_PHASES };
+#ifdef REPRO_QUEUE_PHASES
+constexpr int PHASE_BLOCKS = 4096;
+__device__ unsigned queue_phase_cycles[PHASE_BLOCKS][N_PHASES];
+struct PhaseClock {
+  unsigned last, sum[N_PHASES];
+  __device__ PhaseClock() : last((unsigned)clock()) {
+#pragma unroll
+    for (int p = 0; p < N_PHASES; ++p) sum[p] = 0u;
+  }
+  __device__ void mark(Phase p) {
+    const unsigned now = (unsigned)clock();
+    sum[p] += now - last;
+    last = now;
+  }
+  __device__ void store() const {
+    if (threadIdx.x == 0 && blockIdx.x < PHASE_BLOCKS)
+#pragma unroll
+      for (int p = 0; p < N_PHASES; ++p) queue_phase_cycles[blockIdx.x][p] = sum[p];
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void mark(Phase) const {}
+  __device__ void store() const {}
+};
+#endif
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
+// The flat tables of one flush (see the header).
+struct Flush {
+  const int* kind;
+  const float* t;
+  const float* s;
+  const int* req_off;
+  const int* n_valid;                          // nullptr: n_j = req_off[j + 1] - req_off[j]
+  const float* cap_t;
+  const int* cap_k;
+  const float* hi_t;
+  const int* cap_off;
+  const float* horizon;
+  const float* slo;
+  int k_max;
+  float* lat;                                  // scratch, one latency a request
+  float* out;
+};
+
+// One block's job: its slices of the tables.
+struct Job {
+  const float* t;
+  const float* s;
+  float* lat;
+  const float* cap_t;
+  const int* cap_k;
+  const float* hi_t;
+  int n, E, K;
+  float hz, slo;
+};
+
+struct Totals {
+  int served, viol;
+  double sum_lat, sum_wait;
+  float mx;
+};
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -78,6 +161,186 @@ __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// The least of floats that are not negative, across the warp: with the sign
+// bit cleared (-0 counts as +0) their bits order as they do, so one
+// redux.sync finds it.
+__device__ __forceinline__ float warp_min_nonneg(float x) {
+  return __int_as_float(__reduce_min_sync(FULL, __float_as_int(x) & 0x7fffffff));
+}
+
+// ------------------------------------------------ slot vector in registers
+
+// One level of select_reg: y[i] = y[i + W] where r has bit W.
+template <int W, int R>
+__device__ __forceinline__ void select_level(float (&y)[R], int r) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) y[i] = (r & W) ? y[i + W] : y[i];
+    select_level<W / 2>(y, r);
+  }
+}
+
+// x[r] by a tree over r's bits: log2(R) dependent selects.
+template <int R>
+__device__ __forceinline__ float select_reg(const float (&x)[R], int r) {
+  float y[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) y[i] = x[i];
+  select_level<R / 2>(y, r);
+  return y[0];
+}
+
+// Slot src + 32 * reg of a vector spread over the warp (slot j in lane
+// j % 32, register j / 32): R shuffles and a select tree.
+template <int R>
+__device__ __forceinline__ float fetch(const float (&v)[R], int src, int reg) {
+  float x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) x[r] = __shfl_sync(FULL, v[r], src);
+  return select_reg<R>(x, reg);
+}
+
+// One lane's interval of a window: start, end, open (k > 0), and where its
+// threshold slot g = clip(K - k, 0, K - 1) lives (lane src, register reg;
+// head: g == 0).
+struct Window {
+  float ct, hi;
+  int src, reg;
+  bool open, head;
+};
+
+__device__ __forceinline__ Window window_lane(const Job& q, int e) {
+  Window w{CUDART_INF_F, CUDART_INF_F, 0, 0, false, true};
+  if (e < q.E) {
+    const int k = q.cap_k[e];
+    const int g = min(max(q.K - k, 0), q.K - 1);
+    w = Window{q.cap_t[e], q.hi_t[e], g & 31, g >> 5, k > 0, g == 0};
+  }
+  return w;
+}
+
+// The least a = max(cap_t, free[g]) over the window's intervals that are
+// open, have not ended by s0 and have a < hi; +inf if none. Every a is at
+// least its interval's start, and the starts are not negative (checked).
+template <int R>
+__device__ __forceinline__ float window_min(const float (&fr)[R], const Window& w, float s0) {
+  const float a = fmaxf(w.ct, fetch<R>(fr, w.src, w.reg));
+  return warp_min_nonneg((w.open && s0 < w.hi && a < w.hi) ? a : CUDART_INF_F);
+}
+
+// Warp 0 runs the job's requests in order. The lanes hold the sorted slot
+// vector fr; each lane also holds its interval's threshold th = free[g] and
+// applies the insert's rule (or the drain's) to it, as to slot g of the
+// vector, so the next request's search starts from a register: the
+// shuffles that fetch free[g + 1] and the vector's shift depend on the
+// vector alone and overlap the search. The constant kind's "interval" is
+// slot 0 in every lane. MULTI: the job has more intervals than a window
+// (the cursor, later windows); else one window holds them all. Each lane
+// returns the totals of the requests it kept (lane c of each 32) and stores
+// their latencies.
+template <int R, bool PW, bool MULTI>
+__device__ Totals chain_registers(const Job& q, int lane, PhaseClock& clk) {
+  float fr[R];                                  // slot r * 32 + lane; +inf past K
+#pragma unroll
+  for (int r = 0; r < R; ++r) fr[r] = r * 32 + lane < q.K ? 0.f : CUDART_INF_F;
+  const int up_lane = (lane + 1) & 31;
+  int wb = 0;                                   // the cursor: the window's first interval
+  Window w = PW ? window_lane(q, lane) : Window{0.f, CUDART_INF_F, 0, 0, true, true};
+  float th = fetch<R>(fr, w.src, w.reg);        // free[g]
+  float prev = 0.f;                             // FIFO commit point (piecewise)
+  Totals tot{0, 0, 0.0, 0.0, -CUDART_INF_F};
+  float t_next = lane < q.n ? q.t[lane] : CUDART_INF_F;
+  float s_next = lane < q.n ? q.s[lane] : 0.f;
+  for (int base = 0; base < q.n; base += 32) {
+    const float t_l = t_next, s_l = s_next;
+    const int i = base + lane;
+    t_next = i + 32 < q.n ? q.t[i + 32] : CUDART_INF_F;   // in flight during these 32
+    s_next = i + 32 < q.n ? q.s[i + 32] : 0.f;
+    const int cnt = min(32, q.n - base);
+    float my_start = CUDART_INF_F;              // of request i, inf if unserved
+    clk.mark(LOADS);
+    for (int c = 0; c < cnt; ++c) {
+      const float ti = __shfl_sync(FULL, t_l, c);
+      const float si = __shfl_sync(FULL, s_l, c);
+      float up[R];                              // free[j + 1], the insert's shift
+      {
+        float y[R + 1];                         // lane + 1's registers; lane 31 takes lane 0's next
+#pragma unroll
+        for (int r = 0; r < R; ++r) y[r] = __shfl_sync(FULL, fr[r], up_lane);
+        y[R] = CUDART_INF_F;
+#pragma unroll
+        for (int r = 0; r < R; ++r) up[r] = lane < 31 ? y[r] : y[r + 1];
+      }
+      const float th_up = fetch<R>(up, w.src, w.reg);     // free[g + 1]
+      const float s0 = fmaxf(ti, prev);
+      float start;
+      if constexpr (PW) {
+        const float a = fmaxf(w.ct, th);
+        float m = warp_min_nonneg((w.open && s0 < w.hi && a < w.hi) ? a : CUDART_INF_F);
+        if constexpr (MULTI)
+          for (int nb = wb + 32; nb < q.E && m > q.cap_t[nb]; nb += 32)
+            m = fminf(m, window_min<R>(fr, window_lane(q, nb + lane), s0));
+        start = fmaxf(s0, m);
+      } else {
+        start = fmaxf(ti, th);
+      }
+      clk.mark(SEARCH);
+      const bool served = start < q.hz;
+      const float fin = __fadd_rn(start, si);
+      // unserved with s0 inside the horizon: every slot that frees before the
+      // horizon goes to 0 (the golden oracle's heap drain; a sorted prefix)
+      const bool drain = PW && !served && s0 < q.hz;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool at_or_below = (r == 0 && lane == 0) || fr[r] < fin;
+        const float ins = up[r] < fin ? up[r] : (at_or_below ? fin : fr[r]);
+        fr[r] = served ? ins : (drain && fr[r] < q.hz ? 0.f : fr[r]);
+      }
+      th = served ? (th_up < fin ? th_up : (w.head || th < fin ? fin : th))
+                  : (drain && th < q.hz ? 0.f : th);
+      prev = served ? start : prev;
+      if constexpr (MULTI) {
+        if (q.E > wb + 32) {                    // intervals past the window: move the cursor
+          const unsigned ended = __ballot_sync(FULL, w.hi <= prev);
+          const int lead = ended == FULL ? 32 : __ffs(~ended) - 1;
+          if (lead) {
+            wb += lead;
+            w = window_lane(q, wb + lane);
+            th = fetch<R>(fr, w.src, w.reg);
+          }
+        }
+      }
+      clk.mark(INSERT);
+      my_start = c == lane ? (served ? start : CUDART_INF_F) : my_start;
+    }
+    if (i < q.n) {
+      const bool ok = my_start < CUDART_INF_F;
+      const float my_lat = ok ? __fsub_rn(__fadd_rn(my_start, s_l), t_l) : CUDART_INF_F;
+      q.lat[i] = my_lat;
+      if (ok) {
+        ++tot.served;
+        tot.sum_lat += (double)my_lat;
+        tot.sum_wait += (double)__fsub_rn(my_start, t_l);
+        tot.mx = fmaxf(tot.mx, my_lat);
+      }
+      tot.viol += (!ok || my_lat > q.slo) ? 1 : 0;
+    }
+  }
+  return tot;
+}
+
+// ------------------------------------------ slot vector in shared memory
 
 // Drop free[0] and insert fin so that free[0..K) stays ascending: free[j] =
 // free[j + 1] for j < pos, free[pos] = fin, where pos counts the entries of
@@ -101,133 +364,149 @@ __device__ __forceinline__ void replace_min(float* free, int K, float fin, int l
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS)
-queue_core_kernel(int piecewise, const float* __restrict__ t, const float* __restrict__ s,
-                  int64_t row, const int* __restrict__ n_valid,
-                  const float* __restrict__ horizon, const float* __restrict__ slo,
-                  const float* __restrict__ cap_t, const int* __restrict__ cap_k,
-                  const float* __restrict__ hi_t, int E, int k_pad,
-                  float* __restrict__ lat_out, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_capt = smem;                          // [E]
-  float* s_hit = smem + E;                       // [E]
-  int* s_capk = reinterpret_cast<int*>(smem + 2 * E);   // [E]
-  float* free = smem + 3 * E;                    // [k_pad]
+// The same chain with the slot vector free[0..K) in shared memory (K > 512).
+template <bool PW>
+__device__ Totals chain_shared(const Job& q, float* free, int lane, PhaseClock& clk) {
+  for (int j = lane; j < q.K; j += 32) free[j] = 0.f;
+  __syncwarp();
+  float prev = 0.f;
+  Totals tot{0, 0, 0.0, 0.0, -CUDART_INF_F};
+  float t_next = lane < q.n ? q.t[lane] : CUDART_INF_F;
+  float s_next = lane < q.n ? q.s[lane] : 0.f;
+  for (int base = 0; base < q.n; base += 32) {
+    const float t_l = t_next, s_l = s_next;
+    const int i = base + lane;
+    t_next = i + 32 < q.n ? q.t[i + 32] : CUDART_INF_F;
+    s_next = i + 32 < q.n ? q.s[i + 32] : 0.f;
+    const int cnt = min(32, q.n - base);
+    float my_lat = CUDART_INF_F, my_wait = CUDART_INF_F;
+    clk.mark(LOADS);
+    for (int c = 0; c < cnt; ++c) {
+      const float ti = __shfl_sync(FULL, t_l, c);
+      const float si = __shfl_sync(FULL, s_l, c);
+      const float s0 = fmaxf(ti, prev);
+      float start;
+      if (PW) {
+        float best = CUDART_INF_F;
+        for (int e = lane; e < q.E; e += 32) {
+          const int ke = q.cap_k[e];
+          const float thresh = ke > 0 ? free[min(max(q.K - ke, 0), q.K - 1)] : CUDART_INF_F;
+          const float lo = fmaxf(fmaxf(q.cap_t[e], thresh), s0);
+          best = fminf(best, lo < q.hi_t[e] ? lo : CUDART_INF_F);
+        }
+        start = warp_min(best);
+      } else {
+        start = fmaxf(ti, q.K > 0 ? free[0] : CUDART_INF_F);
+      }
+      clk.mark(SEARCH);
+      const bool served = start < q.hz;
+      const float fin = __fadd_rn(start, si);
+      __syncwarp();                             // every lane has read free
+      if (served) {
+        replace_min(free, q.K, fin, lane);
+        prev = start;
+      } else if (PW && s0 < q.hz) {             // the heap drain
+        for (int j = lane; j < q.K; j += 32)
+          if (free[j] < q.hz) free[j] = 0.f;
+        __syncwarp();
+      }
+      clk.mark(INSERT);
+      if (c == lane) {
+        my_lat = served ? __fsub_rn(fin, ti) : CUDART_INF_F;
+        my_wait = served ? __fsub_rn(start, ti) : CUDART_INF_F;
+      }
+    }
+    if (i < q.n) {
+      q.lat[i] = my_lat;
+      const bool ok = my_lat < CUDART_INF_F;
+      if (ok) {
+        ++tot.served;
+        tot.sum_lat += (double)my_lat;
+        tot.sum_wait += (double)my_wait;
+        tot.mx = fmaxf(tot.mx, my_lat);
+      }
+      tot.viol += (!ok || my_lat > q.slo) ? 1 : 0;
+    }
+  }
+  return tot;
+}
+
+// --------------------------------------------------------------- kernel
+
+template <int R>                                // R > 0: registers a lane; 0: shared memory
+__global__ void __launch_bounds__(THREADS) queue_flush_kernel(const Flush f) {
+  extern __shared__ __align__(16) float slots[];    // [k_max], R == 0 only
   __shared__ int s_K, s_served, s_viol;
   __shared__ double s_sum_lat, s_sum_wait;
   __shared__ float s_max;
   __shared__ int s_counts[WARPS][NRANKS];
   __shared__ int s_lb[NRANKS], s_ub[NRANKS], s_rank[NRANKS];
 
+  PhaseClock clk;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = n_valid[b];
-  const float hz = horizon[b];
-  const float* tb = t + (int64_t)b * row;
-  const float* sb = s + (int64_t)b * row;
-  float* lat = lat_out + (int64_t)b * row;
+  const int r0 = f.req_off[b], e0 = f.cap_off[b];
+  const bool pw = f.kind[b] != 0;
+  Job q;
+  q.t = f.t + r0;
+  q.s = f.s + r0;
+  q.lat = f.lat + r0;
+  q.cap_t = f.cap_t + e0;
+  q.cap_k = f.cap_k + e0;
+  q.hi_t = f.hi_t + e0;
+  q.n = f.n_valid ? f.n_valid[b] : f.req_off[b + 1] - r0;
+  q.E = f.cap_off[b + 1] - e0;
+  q.hz = f.horizon[b];
+  q.slo = f.slo[b];
+  float* o = f.out + (int64_t)b * COLS;
 
-  for (int e = tid; e < E; e += THREADS) {
-    s_capt[e] = cap_t[(int64_t)b * E + e];
-    s_hit[e] = hi_t[(int64_t)b * E + e];
-    s_capk[e] = cap_k[(int64_t)b * E + e];
-  }
-  if (warp == 0) {
-    int K;
-    if (piecewise) {
-      int k = 1;
-      for (int e = lane; e < E; e += 32) k = max(k, cap_k[(int64_t)b * E + e]);
-      for (int o = 16; o; o >>= 1) k = max(k, __shfl_xor_sync(FULL, k, o));
-      K = k;
-    } else {
-      K = max(cap_k[(int64_t)b * E], 0);
+  if (warp == 0) {                              // K: the job's own slots; the checks
+    int k = pw ? 1 : 0;
+    bool bad = q.E < 1;
+    if (!bad && pw) {
+      for (int e = lane; e < q.E; e += 32) {
+        k = max(k, q.cap_k[e]);
+        bad |= !(q.cap_t[e] >= (e > 0 ? q.cap_t[e - 1] : 0.f));
+      }
+      k = __reduce_max_sync(FULL, k);
+      bad = __any_sync(FULL, bad);
+    } else if (!bad) {
+      k = max(q.cap_k[0], 0);
     }
-    if (K > k_pad) K = -1;                       // more slots than shared memory holds
-    for (int j = lane; j < K; j += 32) free[j] = 0.f;
-    if (lane == 0) s_K = K;
+    if (lane == 0) s_K = bad || k > f.k_max ? -1 : k;
   }
   __syncthreads();
-  if (s_K < 0) {                                 // the host checks this outside graph capture
-    if (tid < COLS) out[(int64_t)b * COLS + tid] = CUDART_NAN_F;
+  q.K = s_K;
+  if (q.K < 0) {
+    if (tid < COLS) o[tid] = CUDART_NAN_F;
     return;
   }
+  clk.mark(PROLOGUE);
 
   if (warp == 0) {
-    const int K = s_K;
-    const float slo_t = slo[b];
-    float prev = 0.f;                            // FIFO commit point (piecewise)
-    int served_n = 0, viol = 0;
-    double sum_lat = 0.0, sum_wait = 0.0;
-    float mx = -CUDART_INF_F;
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const float t_l = i < n ? tb[i] : CUDART_INF_F;
-      const float s_l = i < n ? sb[i] : 0.f;
-      const int cnt = min(32, n - base);
-      float my_lat = CUDART_INF_F, my_wait = CUDART_INF_F;
-      for (int c = 0; c < cnt; ++c) {
-        const float ti = __shfl_sync(FULL, t_l, c);
-        const float si = __shfl_sync(FULL, s_l, c);
-        float start;
-        if (piecewise) {
-          const float s0 = fmaxf(ti, prev);
-          float best = CUDART_INF_F;
-          for (int e = lane; e < E; e += 32) {
-            const int ke = s_capk[e];
-            const float thresh = ke > 0 ? free[min(max(K - ke, 0), K - 1)] : CUDART_INF_F;
-            const float lo = fmaxf(fmaxf(s_capt[e], thresh), s0);
-            best = fminf(best, lo < s_hit[e] ? lo : CUDART_INF_F);
-          }
-          start = warp_min(best);
-          if (!(start < hz) && s0 < hz) {        // unserved: the heap drain
-            for (int j = lane; j < K; j += 32)
-              if (free[j] < hz) free[j] = 0.f;
-            __syncwarp();
-          }
-        } else {
-          start = fmaxf(ti, K > 0 ? free[0] : CUDART_INF_F);
-        }
-        const bool served = start < hz;
-        const float fin = __fadd_rn(start, si);
-        if (served) {
-          __syncwarp();                          // every lane has read free
-          replace_min(free, K, fin, lane);
-          prev = start;
-        }
-        if (c == lane) {
-          my_lat = served ? __fsub_rn(fin, ti) : CUDART_INF_F;
-          my_wait = served ? __fsub_rn(start, ti) : CUDART_INF_F;
-        }
-      }
-      if (i < n) {
-        lat[i] = my_lat;
-        const bool ok = my_lat < CUDART_INF_F;
-        if (ok) {
-          ++served_n;
-          sum_lat += (double)my_lat;
-          sum_wait += (double)my_wait;
-          mx = fmaxf(mx, my_lat);
-        }
-        viol += (!ok || my_lat > slo_t) ? 1 : 0;
-      }
-    }
-    served_n = warp_sum(served_n);
-    viol = warp_sum(viol);
-    sum_lat = warp_sum(sum_lat);
-    sum_wait = warp_sum(sum_wait);
-    mx = warp_max(mx);
+    Totals tot;
+    if constexpr (R > 0) {
+      if (!pw) tot = chain_registers<R, false, false>(q, lane, clk);
+      else if (q.E > 32) tot = chain_registers<R, true, true>(q, lane, clk);
+      else tot = chain_registers<R, true, false>(q, lane, clk);
+    } else
+      tot = pw ? chain_shared<true>(q, slots, lane, clk) : chain_shared<false>(q, slots, lane, clk);
+    tot.served = warp_sum(tot.served);
+    tot.viol = warp_sum(tot.viol);
+    tot.sum_lat = warp_sum(tot.sum_lat);
+    tot.sum_wait = warp_sum(tot.sum_wait);
+    tot.mx = warp_max(tot.mx);
     if (lane == 0) {
-      s_served = served_n;
-      s_viol = viol;
-      s_sum_lat = sum_lat;
-      s_sum_wait = sum_wait;
-      s_max = mx;
+      s_served = tot.served;
+      s_viol = tot.viol;
+      s_sum_lat = tot.sum_lat;
+      s_sum_wait = tot.sum_wait;
+      s_max = tot.mx;
     }
   }
   __syncthreads();
 
   const int m = s_served;
-  float* o = out + (int64_t)b * COLS;
   if (m == 0) {
     if (tid == 0) {
       o[0] = 0.f;
@@ -237,6 +516,8 @@ queue_core_kernel(int piecewise, const float* __restrict__ t, const float* __res
       o[6] = 0.f;
       o[7] = (float)s_viol;
     }
+    clk.mark(FOLD);
+    clk.store();
     return;
   }
 
@@ -254,14 +535,14 @@ queue_core_kernel(int piecewise, const float* __restrict__ t, const float* __res
   }
   __syncthreads();
 
-  const unsigned* bits = reinterpret_cast<const unsigned*>(lat);
+  const unsigned* bits = reinterpret_cast<const unsigned*>(q.lat);
   for (int round = 0; round < 31; ++round) {
     int mid[NRANKS], cnt[NRANKS];
     for (int r = 0; r < NRANKS; ++r) {
       mid[r] = s_lb[r] + ((s_ub[r] - s_lb[r]) >> 1);
       cnt[r] = 0;
     }
-    for (int i = tid; i < n; i += THREADS) {
+    for (int i = tid; i < q.n; i += THREADS) {
       const int v = (int)bits[i];
       for (int r = 0; r < NRANKS; ++r) cnt[r] += v <= mid[r] ? 1 : 0;
     }
@@ -293,26 +574,55 @@ queue_core_kernel(int piecewise, const float* __restrict__ t, const float* __res
     o[6] = (float)(s_sum_wait / (double)m);
     o[7] = (float)s_viol;
   }
+  clk.mark(FOLD);
+  clk.store();
+}
+
+template <int R>
+cudaError_t launch(const Flush& f, int J, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        queue_flush_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  queue_flush_kernel<R><<<J, THREADS, smem, stream>>>(f);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int queue_core_fwd(int piecewise, const float* t, const float* s, int64_t row,
-                              const int* n_valid, const float* horizon, const float* slo,
-                              const float* cap_t, const int* cap_k, const float* hi_t,
-                              int B, int E, int k_pad, float* lat, float* out,
-                              void* stream) {
-  if (B <= 0 || E <= 0 || k_pad <= 0 || row < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * E + k_pad) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        queue_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// One launch for every job of a flush. slot_regs: registers a lane of the
+// slot vector (1, 2, 4, 8 or 16, 32 * slot_regs >= k_max), or 0 for the
+// shared-memory instance ([k_max] floats of dynamic shared memory).
+extern "C" int queue_flush_fwd(int slot_regs, const int* kind, const float* t, const float* s,
+                               const int* req_off, const int* n_valid, const float* cap_t,
+                               const int* cap_k, const float* hi_t, const int* cap_off,
+                               const float* horizon, const float* slo, int J, int k_max,
+                               float* lat, float* out, void* stream) {
+  if (J <= 0 || k_max < 1 || (slot_regs > 0 && k_max > 32 * slot_regs))
+    return (int)cudaErrorInvalidValue;
+  const Flush f{kind, t, s, req_off, n_valid, cap_t, cap_k, hi_t, cap_off, horizon, slo,
+                k_max, lat, out};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (slot_regs) {
+    case 1: return (int)launch<1>(f, J, 0, st);
+    case 2: return (int)launch<2>(f, J, 0, st);
+    case 4: return (int)launch<4>(f, J, 0, st);
+    case 8: return (int)launch<8>(f, J, 0, st);
+    case 16: return (int)launch<16>(f, J, 0, st);
+    case 0: return (int)launch<0>(f, J, (size_t)k_max * sizeof(float), st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  queue_core_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      piecewise, t, s, row, n_valid, horizon, slo, cap_t, cap_k, hi_t, E, k_pad, lat, out);
-  return (int)cudaGetLastError();
 }
+
+#ifdef REPRO_QUEUE_PHASES
+// Copies the phase cycles of blocks [0, n) of the last launch to out, n x
+// N_PHASES unsigned ints in the order of enum Phase.
+extern "C" int queue_phase_cycles_read(unsigned* out, int n) {
+  if (n < 0 || n > PHASE_BLOCKS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, queue_phase_cycles, sizeof(unsigned) * N_PHASES * n);
+}
+#endif
 
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

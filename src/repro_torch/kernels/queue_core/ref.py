@@ -23,9 +23,22 @@ Returns [B, 8] float32 in ``FOLD_COLS`` order: n_served, p50, p95, p99,
 mean, max, mean wait, violations. A job with nothing served has inf
 percentiles, mean and mean wait 0 and max -inf (its metrics come from the
 counts alone).
+
+``queue_flush_reference`` takes a flush as the kernel does, flat tables of
+ragged jobs of both kinds (``kind`` [J], 0 "const" or 1 "pw"; t, s [N] with
+job j's requests at [req_off[j], req_off[j] + n_j), n_j = n_valid[j] where
+given, else req_off[j + 1] - req_off[j]; cap_t, cap_k, hi_t [E] with job j's
+intervals at [cap_off[j], cap_off[j + 1]); horizon, slo [J]), and gives each
+job the row ``queue_core_reference`` gives it alone.
+
+``window_start`` and ``advance_cursor`` state the kernel's interval search
+in plain numpy (a window of 32 intervals, a cursor that only moves past
+intervals the commit point has passed), for the tests to hold against the
+``amin`` over all intervals.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 KINDS = ("const", "pw")
@@ -120,6 +133,22 @@ def fold(lat, wait, n_valid, slo):
                       mean_w[:, None], viol.to(torch.float32)[:, None]], dim=1)
 
 
+def _starts(kind, t, s, cap_t, cap_k, hi_t, horizon, k_pad):
+    """Each request's start [B, steps], inf where unserved."""
+    if kind == "const":
+        starts = _kw_scan(t, s, cap_k, horizon, k_pad)
+    else:
+        starts = _pw_scan(t, s, cap_t, cap_k, hi_t, horizon, k_pad)
+    return torch.cat(starts, dim=1)
+
+
+def _lat_wait(start, t, s):
+    served = torch.isfinite(start)
+    lat = torch.where(served, (start + s) - t, torch.inf)    # fin - t_i
+    wait = torch.where(served, start - t, torch.inf)
+    return lat, wait
+
+
 def queue_core_reference(kind, t, s, n_valid, horizon, slo, cap_t, cap_k, hi_t,
                          k_pad: int) -> torch.Tensor:
     """The batched queue core in plain PyTorch; see the module docstring.
@@ -129,12 +158,73 @@ def queue_core_reference(kind, t, s, n_valid, horizon, slo, cap_t, cap_k, hi_t,
         raise ValueError(f"unknown queue kind {kind!r}; have {KINDS}")
     steps = max(int(n_valid.max()), 1)
     t, s = t[:, :steps].float(), s[:, :steps].float()
-    if kind == "const":
-        starts = _kw_scan(t, s, cap_k, horizon, k_pad)
-    else:
-        starts = _pw_scan(t, s, cap_t, cap_k, hi_t, horizon, k_pad)
-    start = torch.cat(starts, dim=1)
-    served = torch.isfinite(start)
-    lat = torch.where(served, (start + s) - t, torch.inf)    # fin - t_i
-    wait = torch.where(served, start - t, torch.inf)
-    return fold(lat, wait, n_valid, slo)
+    start = _starts(kind, t, s, cap_t, cap_k, hi_t, horizon, k_pad)
+    return fold(*_lat_wait(start, t, s), n_valid, slo)
+
+
+def queue_flush_reference(kind, t, s, req_off, cap_t, cap_k, hi_t, cap_off, horizon, slo,
+                          n_valid=None) -> torch.Tensor:
+    """A flush in plain PyTorch -> [J, 8]; see the module docstring. Job j's
+    row is ``queue_core_reference``'s for job j alone: padding is
+    value-invariant, so the jobs of one kind run their requests as one padded
+    batch, and each job is then folded over its own requests (a padded one
+    if it has none), as alone."""
+    J, dev = kind.shape[0], t.device
+    off, co, kinds = req_off.tolist(), cap_off.tolist(), kind.tolist()
+    nv = n_valid.tolist() if n_valid is not None else [off[j + 1] - off[j] for j in range(J)]
+    out = torch.empty((J, 8), dtype=torch.float32, device=dev)
+    for kind_id, name in enumerate(KINDS):
+        rows = [j for j in range(J) if kinds[j] == kind_id]
+        if not rows:
+            continue
+        B, steps = len(rows), max(max(nv[j] for j in rows), 1)
+        e_pad = max(co[j + 1] - co[j] for j in rows)
+        t_b = torch.full((B, steps), torch.inf, dtype=torch.float32, device=dev)
+        s_b = torch.zeros((B, steps), dtype=torch.float32, device=dev)
+        ct_b = torch.full((B, e_pad), torch.inf, dtype=torch.float32, device=dev)
+        hi_b = torch.full((B, e_pad), torch.inf, dtype=torch.float32, device=dev)
+        ck_b = torch.zeros((B, e_pad), dtype=torch.int32, device=dev)
+        for r, j in enumerate(rows):
+            n, e = nv[j], co[j + 1] - co[j]
+            t_b[r, :n] = t[off[j]:off[j] + n]
+            s_b[r, :n] = s[off[j]:off[j] + n]
+            ct_b[r, :e] = cap_t[co[j]:co[j + 1]]
+            ck_b[r, :e] = cap_k[co[j]:co[j + 1]]
+            hi_b[r, :e] = hi_t[co[j]:co[j + 1]]
+        k_pad = max(int(ck_b.max()), 1)
+        idx = torch.tensor(rows, device=dev)
+        lat, wait = _lat_wait(_starts(name, t_b, s_b, ct_b, ck_b, hi_b, horizon[idx].float(),
+                                      k_pad), t_b, s_b)
+        for r, j in enumerate(rows):
+            m = max(nv[j], 1)
+            out[j] = fold(lat[r:r + 1, :m], wait[r:r + 1, :m],
+                          torch.tensor([nv[j]], device=dev), slo[j:j + 1].float())[0]
+    return out
+
+
+def window_start(s0, cap_t, thresh, hi_t, wb: int, width: int = 32):
+    """The kernel's interval search for one request, in float32 numpy.
+    ``thresh`` is each interval's free[K - k_e] (+inf where k_e <= 0), ``wb``
+    the cursor. An interval that has not ended (s0 < hi) is feasible iff
+    a = max(cap_t, thresh) < hi, and then max(cap_t, thresh, s0) = max(a,
+    s0): start = max(s0, the least feasible a). The window [wb, wb + width)
+    is searched first; the starts ascend, so a later window is searched only
+    while the min exceeds the start of its first interval."""
+    a = np.maximum(cap_t, thresh)
+    cand = np.where((s0 < hi_t) & (a < hi_t), a, np.float32(np.inf))
+    m = cand[wb:wb + width].min(initial=np.float32(np.inf))
+    nb = wb + width
+    while nb < len(cap_t) and m > cap_t[nb]:
+        m = min(m, cand[nb:nb + width].min())
+        nb += width
+    return np.maximum(np.float32(s0), m)
+
+
+def advance_cursor(prev, hi_t, wb: int, width: int = 32) -> int:
+    """The cursor after a request: where intervals remain past the window,
+    past the window's leading intervals that ended by the commit point
+    ``prev`` (which never decreases, so no later request can use them)."""
+    if len(hi_t) > wb + width:
+        ended = hi_t[wb:wb + width] <= prev
+        wb += width if ended.all() else int(np.argmin(ended))
+    return wb

@@ -35,15 +35,15 @@ falling back to in-process execution if a pool cannot start.
 
 WS request queues (v6): cells run in chunks and each chunk's queues —
 every tenant's realized allocation, constant and piecewise capacity alike
-— flush as ONE shape-bucketed dispatch of the ``kernels.queue_core`` CUDA
-kernel, one launch per bucket (``queue_impl='batched'``, float32, golden
-tolerance vs the exact paths; the per-impl split lands in the artifact's
+— flush as ONE launch of the ``kernels.queue_core`` CUDA kernel, every
+job one block of it (``queue_impl='batched'``, float32, golden tolerance
+vs the exact paths; the per-impl split lands in the artifact's
 ``throughput.queue_impls``). ``--device`` (default ``cuda``) says where
 the batched flush runs; ``cpu`` runs the kernel's plain PyTorch version,
 and a run asked for the card raises when there is none.
 ``--queue-impl exact`` keeps the inline per-tenant float64 numpy sweep.
-Batched metrics are composition-independent — bucket shapes are pure
-per-cell functions — so chunking/sharding never changes a row.
+Batched metrics are composition-independent — a job's row depends on
+that job alone — so chunking/sharding never changes a row.
 
 Fault profiles (v7): ``--fault-profile`` / the ``fault_profile`` cell
 axis injects node failures from ``core.faults.FAULT_PROFILES`` (``none``
@@ -89,8 +89,8 @@ from repro_torch.workloads.queueing import (QueueJob, SIM_COUNTERS, counters_del
 SCHEMA = "phoenix-campaign-v7"
 
 # cells dispatched per batched queue flush: every WS tenant queue from a
-# chunk of sims rides one shape-bucketed device program (bigger chunks
-# amortize better; smaller chunks keep spool streaming fine-grained)
+# chunk of sims rides one kernel launch (bigger chunks amortize better;
+# smaller chunks keep spool streaming fine-grained)
 QUEUE_CHUNK = 8
 
 # department mixes: name -> (n_hpc, n_ws, n_best_effort)
@@ -119,8 +119,8 @@ class ScenarioCell:
     # When set, latency departments bid slo_elastic (v5 market axis).
     budget: float = 0.0
     # WS request-queue backend (v6): "batched" defers every tenant queue to
-    # the shape-bucketed queue_core kernel launches (float32, golden
-    # tolerance); "exact" keeps the inline per-tenant float64 numpy sweep.
+    # its chunk's one queue_core kernel launch (float32, golden tolerance);
+    # "exact" keeps the inline per-tenant float64 numpy sweep.
     queue_impl: str = "batched"
     # fault-injection profile (v7): key into core.faults.FAULT_PROFILES;
     # "none" keeps the cell fault-free (the pre-v7 behaviour)
@@ -357,8 +357,8 @@ class _PendingCell:
 def _cell_start(cell: ScenarioCell,
                 trace_dir: Optional[str] = None) -> _PendingCell:
     """Run one scenario's consolidation sim, deferring the WS request-queue
-    sims (``queue_impl='batched'``) so a chunk of cells can flush them as
-    one shape-bucketed device program."""
+    sims (``queue_impl='batched'``) so a chunk of cells can flush them in
+    one kernel launch."""
     t0 = time.time()
     q0 = snapshot_counters()
     defer = cell.queue_impl == "batched"
@@ -546,9 +546,9 @@ def run_cell(cell: ScenarioCell, trace_dir: Optional[str] = None,
     untraced run.
 
     Equivalent to ``run_cell_chunk([cell])[0]``: the batched queue path is
-    composition-independent (bucket shapes are pure per-cell functions of
-    n; e/k padding is value-invariant), so a cell's metrics are bitwise
-    the same whether its queues flush alone or with a chunk.
+    composition-independent (a job's row depends on that job alone), so a
+    cell's metrics are bitwise the same whether its queues flush alone or
+    with a chunk.
     """
     device = str(resolve_device(device))
     return _flush_pending([_cell_start(cell, trace_dir)], trace_dir,

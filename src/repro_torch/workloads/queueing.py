@@ -26,14 +26,16 @@ tests/test_queueing_equivalence.py):
                     capacity lookup inside a retry loop; kept as the
                     golden oracle and the benchmark baseline.
 
-``simulate_queue_batch`` (and its ``simulate_queue_many`` wrapper) batches
-heterogeneous cells through shape buckets, one launch of the hand-written
-``kernels.queue_core`` CUDA kernel each — a Kiefer–Wolfowitz recurrence for
-constant capacity and a k(t)-aware sorted-slot recurrence for piecewise
-capacity — with the metric fold in the same launch (float32 —
-golden-tolerance, not bit-identical). On the CPU the kernel's plain PyTorch
-version runs instead; nothing falls back to the numpy paths unless asked
-(``backend='numpy'``).
+``simulate_queue_batch`` (and its ``simulate_queue_many`` wrapper) runs
+every heterogeneous cell of a flush in ONE launch of the hand-written
+``kernels.queue_core`` CUDA kernel (``queue_flush``, ragged flat tables) — a
+Kiefer–Wolfowitz recurrence for constant capacity and a k(t)-aware
+sorted-slot recurrence for piecewise capacity — with the metric fold in the
+same launch (float32 — golden-tolerance, not bit-identical). On the CPU the
+kernel's plain PyTorch version runs instead; nothing falls back to the numpy
+paths unless asked (``backend='numpy'``). The JAX package's shape-bucket
+plan stays (``plan_queue_buckets``, ``bucket_inputs``) for the bucket form
+of the kernel and the parity tests.
 
 The port's copy of ``repro.workloads.queueing``: the exact numpy paths are
 the JAX package's, line for line; the batched section replaces its
@@ -52,7 +54,7 @@ import torch
 
 from repro_torch.core.types import SLOConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.queue_core import queue_core
+from repro_torch.kernels.queue_core import queue_flush
 from repro_torch.serving.batching import ServiceTimeModel
 from repro_torch.workloads.arrivals import RequestTrace
 
@@ -501,9 +503,17 @@ def _job_horizon(job: QueueJob) -> float:
     return float(job.trace.t[-1]) + 1e9 if len(job.trace) else 0.0
 
 
+def _job_caps(jobs: Sequence[QueueJob]) -> List[Optional[tuple]]:
+    """Each job's ``capacity_steps`` arrays; None for an empty trace (those
+    are handled on the host)."""
+    return [capacity_steps(job.capacity_events, job.model.slots_per_replica)
+            if len(job.trace) else None for job in jobs]
+
+
 def _plan(jobs: Sequence[QueueJob]):
-    """Bucket jobs by kind and padded trace length; returns (buckets,
-    caps) where caps[i] is job i's ``capacity_steps`` arrays.
+    """Bucket jobs by kind and padded trace length, as the JAX package's
+    batched cores need (one launch a bucket there); returns (buckets, caps)
+    where caps[i] is job i's ``capacity_steps`` arrays.
 
     Only ``n_pad`` is part of the key, a pure function of the cell alone.
     The e/k axes are padded at dispatch time to the batch maximum: padded
@@ -513,16 +523,12 @@ def _plan(jobs: Sequence[QueueJob]):
     shape but not one bit of any cell's result — shard merges stay
     bit-identical to single-shot campaign runs."""
     buckets: Dict[tuple, List[int]] = {}
-    caps: List[Optional[tuple]] = [None] * len(jobs)
+    caps = _job_caps(jobs)
     for i, job in enumerate(jobs):
-        n = len(job.trace)
-        if n == 0:
+        if caps[i] is None:
             continue
-        cap_t, cap_k = capacity_steps(job.capacity_events,
-                                      job.model.slots_per_replica)
-        caps[i] = (cap_t, cap_k)
-        kind = "const" if len(cap_t) == 1 else "pw"
-        buckets.setdefault((kind, _pad_bucket(n, 256)), []).append(i)
+        kind = "const" if len(caps[i][0]) == 1 else "pw"
+        buckets.setdefault((kind, _pad_bucket(len(job.trace), 256)), []).append(i)
     return buckets, caps
 
 
@@ -530,9 +536,10 @@ def plan_queue_buckets(jobs: Sequence[QueueJob]) -> Dict[tuple, List[int]]:
     """Public view of the shape-bucket plan: {key: [job indices]}.
 
     Keys are ("const", n_pad) or ("pw", n_pad); a bucket's padded element
-    count is ``len(rows) * n_pad``, and each bucket is one launch of the
-    queue core. Jobs with empty traces are handled on host and appear in no
-    bucket."""
+    count is ``len(rows) * n_pad``. The JAX package launches once a bucket;
+    the port's flush is one launch whatever the buckets, and keeps the plan
+    for the bucket form of the kernel and for parity. Jobs with empty traces
+    are handled on host and appear in no bucket."""
     return _plan(jobs)[0]
 
 
@@ -592,22 +599,87 @@ def bucket_inputs(jobs: Sequence[QueueJob], key: tuple, rows: Sequence[int],
     return kind, t_b, s_b, nv, hz, st, ct_b, ck_b, hi_b, k_pad
 
 
+# The flat flush tables, in ``queue_flush``'s argument order: (name, dtype).
+FLUSH_FIELDS = (("kind", np.int32), ("t", np.float32), ("s", np.float32),
+                ("req_off", np.int32), ("cap_t", np.float32), ("cap_k", np.int32),
+                ("hi_t", np.float32), ("cap_off", np.int32), ("horizon", np.float32),
+                ("slo", np.float32))
+
+
+def flush_inputs(jobs: Sequence[QueueJob], rows: Sequence[int],
+                 caps: Sequence[Optional[tuple]], pin_memory: bool = False):
+    """The flat host tables of one flush (jobs ``rows``), built once in one
+    int32 buffer (page-locked when ``pin_memory``), so that one copy moves
+    them: returns (buffer, spans, k_max), spans[name] = (offset, length) in
+    ``FLUSH_FIELDS`` order and k_max the flush's largest slot count (at
+    least 1). Arrival and service times are float32 (service times drawn in
+    float64 by ``ServiceTimeModel.service_times``, then cast); a job with one
+    capacity interval is constant ("const", kind 0), else piecewise (1).
+    Raises ValueError where a piecewise job's interval starts descend or
+    begin below 0."""
+    ns = [len(jobs[i].trace) for i in rows]
+    es = [len(caps[i][0]) for i in rows]
+    J, N, E = len(rows), sum(ns), sum(es)
+    if max(N, E) >= 2 ** 31:
+        raise ValueError("a flush holds fewer than 2**31 requests and intervals")
+    sizes = {"kind": J, "t": N, "s": N, "req_off": J + 1, "cap_t": E, "cap_k": E,
+             "hi_t": E, "cap_off": J + 1, "horizon": J, "slo": J}
+    spans, at = {}, 0
+    for name, _ in FLUSH_FIELDS:
+        spans[name] = (at, sizes[name])
+        at += sizes[name]
+    buf = torch.empty(at, dtype=torch.int32, pin_memory=pin_memory)
+    raw = buf.numpy()
+    v = {name: raw[a:a + n].view(dt)
+         for (name, dt), (a, n) in zip(FLUSH_FIELDS, spans.values())}
+    v["req_off"][0] = v["cap_off"][0] = 0
+    np.cumsum(ns, out=v["req_off"][1:])
+    np.cumsum(es, out=v["cap_off"][1:])
+    v["hi_t"][:] = np.inf
+    k_max = 1
+    for r, i in enumerate(rows):
+        job, (cap_t, cap_k) = jobs[i], caps[i]
+        if len(cap_t) > 1 and (cap_t[0] < 0 or np.any(np.diff(cap_t) < 0)):
+            raise ValueError(f"job {i}: capacity interval starts must ascend from 0")
+        a, b = v["req_off"][r], v["req_off"][r + 1]
+        v["t"][a:b] = job.trace.t
+        v["s"][a:b] = job.model.service_times(job.trace.prompt_tokens,
+                                              job.trace.decode_tokens)
+        a, b = v["cap_off"][r], v["cap_off"][r + 1]
+        v["cap_t"][a:b] = cap_t
+        v["cap_k"][a:b] = cap_k
+        v["hi_t"][a:b - 1] = cap_t[1:]
+        v["kind"][r] = int(len(cap_t) > 1)
+        k_max = max(k_max, int(cap_k.max() if len(cap_t) > 1 else cap_k[0]))
+        v["horizon"][r] = _job_horizon(job)
+        v["slo"][r] = job.slo.latency_target_s
+    return buf, spans, k_max
+
+
+def flush_tensors(buf: torch.Tensor, spans) -> List[torch.Tensor]:
+    """``queue_flush``'s table arguments as views of a ``flush_inputs``
+    buffer, on the host or copied to the card."""
+    return [buf[a:a + n].view(torch.float32) if dt == np.float32 else buf[a:a + n]
+            for (_, dt), (a, n) in zip(FLUSH_FIELDS, spans.values())]
+
+
 def simulate_queue_batch(jobs: Sequence[QueueJob], backend: str = "auto",
                          stats_out: Optional[List[str]] = None,
                          device=None) -> List[QueueMetrics]:
     """Batched FIFO M/G/k(t) simulation over heterogeneous cells.
 
-    Jobs are grouped into padded shape buckets, and each bucket is one call
-    of ``kernels.queue_core`` on ``device`` (default the card;
-    ``repro_torch.device.resolve_device`` raises when there is none):
-    constant-capacity cells on the Kiefer–Wolfowitz recurrence,
-    piecewise-capacity cells on the k(t)-aware sorted-slot recurrence, with
-    the metric fold in the same launch (float32: metrics agree with the
-    exact paths to golden tolerance, not bitwise). On a CUDA device the
-    kernel runs; on the CPU its plain PyTorch version. ``backend`` is
-    "auto" (that dispatch) or "numpy", the only way to the exact per-cell
-    ``simulate_queue`` paths. Results come back in input order;
-    ``stats_out``, when given, receives one impl tag per job
+    Every job is one block of ONE call of ``kernels.queue_core.queue_flush``
+    on ``device`` (default the card; ``repro_torch.device.resolve_device``
+    raises when there is none): the host builds the flat tables once in one
+    page-locked buffer, copies them in with one copy, launches once and
+    copies back one [J, 8] result. Constant-capacity cells run the
+    Kiefer–Wolfowitz recurrence, piecewise-capacity cells the k(t)-aware
+    sorted-slot recurrence, with the metric fold in the same launch (float32:
+    metrics agree with the exact paths to golden tolerance, not bitwise). On
+    a CUDA device the kernel runs; on the CPU its plain PyTorch version.
+    ``backend`` is "auto" (that dispatch) or "numpy", the only way to the
+    exact per-cell ``simulate_queue`` paths. Results come back in input
+    order; ``stats_out``, when given, receives one impl tag per job
     ("cuda_batched", "torch_batched" or "numpy")."""
     if backend not in ("auto", "numpy"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -615,35 +687,30 @@ def simulate_queue_batch(jobs: Sequence[QueueJob], backend: str = "auto",
     dev = resolve_device(device) if batched else None
     out: List[Optional[QueueMetrics]] = [None] * len(jobs)
     tags = ["numpy"] * len(jobs)
-    buckets, caps = _plan(jobs) if batched else ({}, [None] * len(jobs))
-    on_device = {i for rows in buckets.values() for i in rows}
+    caps = _job_caps(jobs) if batched else [None] * len(jobs)
+    rows = [i for i, c in enumerate(caps) if c is not None]
     for i, job in enumerate(jobs):
-        if i not in on_device:
+        if caps[i] is None:
             out[i] = simulate_queue(job.trace, job.capacity_events,
                                     job.model, job.slo,
                                     horizon=job.horizon)
-    if not buckets:
+    if not rows:
         if stats_out is not None:
             stats_out.extend(tags)
         return out  # type: ignore[return-value]
 
     t0_wall = time.perf_counter()
     tag = "cuda_batched" if dev.type == "cuda" else "torch_batched"
-    n_req = 0
-    for key, rows in sorted(buckets.items()):
-        kind, *arrays, k_pad = bucket_inputs(jobs, key, rows, caps)
-        res = queue_core(kind, *(torch.from_numpy(a).to(dev) for a in arrays),
-                         k_pad)
-        res = res.cpu().numpy().astype(np.float64)       # [B, FOLD_COLS]
-        for r, i in enumerate(rows):
-            out[i] = _metrics_from_fold(len(jobs[i].trace), res[r],
-                                        jobs[i].slo)
-            tags[i] = tag
-            n_req += len(jobs[i].trace)
-    SIM_COUNTERS["calls"] += len(on_device)
-    SIM_COUNTERS["requests"] += n_req
+    buf, spans, k_max = flush_inputs(jobs, rows, caps, pin_memory=dev.type == "cuda")
+    res = queue_flush(*flush_tensors(buf.to(dev, non_blocking=True), spans), k_max)
+    res = res.cpu().numpy().astype(np.float64)           # [J, FOLD_COLS]
+    for r, i in enumerate(rows):
+        out[i] = _metrics_from_fold(len(jobs[i].trace), res[r], jobs[i].slo)
+        tags[i] = tag
+    SIM_COUNTERS["calls"] += len(rows)
+    SIM_COUNTERS["requests"] += sum(len(jobs[i].trace) for i in rows)
     SIM_COUNTERS["seconds"] += time.perf_counter() - t0_wall
-    SIM_COUNTERS[tag] += len(on_device)
+    SIM_COUNTERS[tag] += len(rows)
     if stats_out is not None:
         stats_out.extend(tags)
     return out  # type: ignore[return-value]

@@ -628,20 +628,20 @@ def _queue_wide_long_jobs():
 
 
 def _hold_queue_kernel_to_plain(jobs):
-    """Every bucket of ``jobs`` through the kernel (one launch) and through
-    the plain version on the same inputs: all columns but the two sums
-    bit-equal, the sums within 1e-5 relative."""
+    """Every bucket of ``jobs`` through the bucket form (one launch each) and
+    through the plain version on the same inputs: all columns but the two
+    sums bit-equal, the sums within 1e-5 relative."""
     from repro_torch.kernels.queue_core import ops, ref
     from repro_torch.workloads import queueing as Q
     buckets, caps = Q._plan(jobs)
     assert buckets
     for key, rows in sorted(buckets.items()):
         kind, *arrays, k_pad = Q.bucket_inputs(jobs, key, rows, caps)
-        before = ops.queue_core.launches
+        before = ops.queue_flush.launches
         got = ops.queue_core(kind, *(torch.from_numpy(a).cuda() for a in arrays), k_pad)
         want = ref.queue_core_reference(kind, *(torch.from_numpy(a) for a in arrays), k_pad)
         torch.cuda.synchronize()
-        assert ops.queue_core.launches == before + 1
+        assert ops.queue_flush.launches == before + 1
         got = got.cpu()
         assert got.shape == (len(rows), 8)
         assert torch.equal(got[:, QUEUE_EXACT_COLS], want[:, QUEUE_EXACT_COLS]), (key, got, want)
@@ -649,13 +649,66 @@ def _hold_queue_kernel_to_plain(jobs):
                               rtol=1e-5, atol=0), key
 
 
+def _flush_args(jobs):
+    """The flat tables of one flush of ``jobs`` on the host, and k_max."""
+    from repro_torch.workloads import queueing as Q
+    caps = Q._job_caps(jobs)
+    rows = [i for i, c in enumerate(caps) if c is not None]
+    buf, spans, k_max = Q.flush_inputs(jobs, rows, caps)
+    return Q.flush_tensors(buf, spans), k_max
+
+
+def _hold_flush_to_plain(jobs, instance=None, k_max=None):
+    """All of ``jobs`` through the flat kernel (one launch, on ``instance``
+    where given, with ``k_max`` slots where given) and through the flat
+    plain version on the CPU: every column but the two sums bit-equal, the
+    sums within 1e-5 relative. Returns the kernel's rows."""
+    from repro_torch.kernels.queue_core import ops, ref
+    args, k_jobs = _flush_args(jobs)
+    k_max = k_jobs if k_max is None else k_max
+    want = ref.queue_flush_reference(*args)
+    before, by = ops.queue_flush.launches, dict(ops.queue_flush.instance_launches)
+    got = ops.queue_flush(*(a.cuda() for a in args), k_max)
+    torch.cuda.synchronize()
+    assert ops.queue_flush.launches == before + 1
+    name = ops.INSTANCES[ops.slot_registers(k_max)]
+    assert ops.queue_flush.instance_launches[name] == by[name] + 1
+    assert instance is None or name == instance
+    got = got.cpu()
+    assert got.shape == want.shape
+    assert torch.equal(got[:, QUEUE_EXACT_COLS], want[:, QUEUE_EXACT_COLS]), (got, want)
+    assert torch.allclose(got[:, QUEUE_SUM_COLS], want[:, QUEUE_SUM_COLS], rtol=1e-5, atol=0)
+    return got
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its queue check sets."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_sets", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _full_chunk_jobs():
+    """The queue jobs of the first chunk of ``--grid full --shard 0/252``
+    (its cells 0, 252, ..., 1764), the flush the campaign phase times."""
+    from repro_torch.workloads import campaign as C
+    cells = C.shard_cells(C.make_grid("full"), "0/252")[:C.QUEUE_CHUNK]
+    return [j for c in cells for j in C._cell_start(c).jobs]
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_queue_kernel_matches_plain(cuda, seed):
     _hold_queue_kernel_to_plain(_queue_jobs(seed))
+    _hold_flush_to_plain(_queue_jobs(seed))
 
 
 def test_queue_kernel_edges_match_plain(cuda):
     _hold_queue_kernel_to_plain(_queue_edge_jobs())
+    _hold_flush_to_plain(_queue_edge_jobs())
 
 
 def test_queue_kernel_wide_long_jobs_match_plain(cuda):
@@ -667,16 +720,77 @@ def test_queue_kernel_wide_long_jobs_match_plain(cuda):
     assert max(key[1] for key in buckets) > 8192
     assert max(Q.bucket_inputs(jobs, key, rows, caps)[-1] for key, rows in buckets.items()) > 64
     _hold_queue_kernel_to_plain(jobs)
+    _hold_flush_to_plain(jobs, "registers_16")
 
 
 def test_queue_kernel_matches_plain_on_the_full_grids_first_chunk(cuda):
-    """The queue jobs of the first chunk of ``--grid full --shard 0/252``
-    (its cells 0, 252, ..., 1764), the flush the campaign phase times."""
-    from repro_torch.workloads import campaign as C
-    cells = C.shard_cells(C.make_grid("full"), "0/252")[:C.QUEUE_CHUNK]
-    jobs = [j for c in cells for j in C._cell_start(c).jobs]
+    jobs = _full_chunk_jobs()
     assert len(jobs) > 0
     _hold_queue_kernel_to_plain(jobs)
+    _hold_flush_to_plain(jobs, "registers_4")
+
+
+@pytest.mark.parametrize("name", ["random", "edges", "piecewise_192", "dedicated_8_12_16",
+                                  "wide_long", "many_intervals"])
+def test_queue_flush_matches_plain_on_chip_smokes_sets(cuda, name):
+    """The flat kernel against the flat plain version on each set that
+    ``chip_smoke.py`` checks, one launch a set."""
+    _hold_flush_to_plain(_chip_smoke().queue_sets()[name])
+
+
+@pytest.mark.parametrize("K,instance", [
+    (32, "registers_1"), (33, "registers_2"), (64, "registers_2"), (65, "registers_4"),
+    (128, "registers_4"), (129, "registers_8"), (256, "registers_8"), (257, "registers_16"),
+    (512, "registers_16"), (513, "shared_memory"), (600, "shared_memory")])
+def test_queue_flush_at_the_register_tiers_edges(cuda, K, instance):
+    """K slots at each edge of the register tiers; above 512 the
+    shared-memory instance (``chip_smoke.tier_jobs``)."""
+    _hold_flush_to_plain(_chip_smoke().tier_jobs(K), instance)
+
+
+@pytest.mark.parametrize("k_max,instance", [
+    (32, "registers_1"), (64, "registers_2"), (128, "registers_4"), (256, "registers_8"),
+    (512, "registers_16"), (600, "shared_memory")])
+def test_queue_flush_runs_the_cursor_on_every_instance(cuda, k_max, instance):
+    """Jobs of 33, 40, 64 and 100 intervals (``chip_smoke.many_interval_jobs``:
+    the cursor moves, later windows are searched, closed intervals, a
+    drain) at K <= 32, on each instance by its k_max."""
+    jobs = _chip_smoke().many_interval_jobs()
+    assert _flush_args(jobs)[1] == 32
+    _hold_flush_to_plain(jobs, instance, k_max)
+
+
+def test_queue_flush_rows_do_not_depend_on_the_instance(cuda):
+    """The same jobs alone (a register instance: 200 slots at most) and
+    beside a 600-slot job (the shared-memory instance): the same bits."""
+    alone = _hold_flush_to_plain(_queue_edge_jobs(), "registers_8")
+    beside = _hold_flush_to_plain(_queue_edge_jobs() + _chip_smoke().tier_jobs(600)[:1], "shared_memory")
+    assert torch.equal(alone, beside[:len(alone)])
+
+
+def test_queue_flush_gives_a_nan_row_where_the_card_cannot_check(cuda):
+    """On CUDA tensors the host reads no table: a job whose slots exceed
+    k_max, or whose interval starts descend or begin below 0, gets a NaN row
+    and the others their own."""
+    from repro_torch.kernels.queue_core import ops
+    jobs = _queue_edge_jobs()[:4]
+    args, k_max = _flush_args(jobs)
+    want = ops.queue_flush(*(a.cuda() for a in args), k_max)
+    kind, t, s, req_off, cap_t, cap_k, hi_t, cap_off, hz, slo = (a.cuda() for a in args)
+    wide = cap_k.clone()
+    wide[cap_off[2]] = k_max + 1
+    got = ops.queue_flush(kind, t, s, req_off, cap_t, wide, hi_t, cap_off, hz, slo, k_max)
+    assert torch.isnan(got[2]).all() and torch.equal(got[[0, 1, 3]], want[[0, 1, 3]])
+    lo, hi = int(cap_off[1]), int(cap_off[2])
+    assert hi - lo > 2
+    swapped = cap_t.clone()
+    swapped[lo + 1], swapped[lo + 2] = cap_t[lo + 2], cap_t[lo + 1]
+    got = ops.queue_flush(kind, t, s, req_off, swapped, cap_k, hi_t, cap_off, hz, slo, k_max)
+    assert torch.isnan(got[1]).all() and torch.equal(got[[0, 2, 3]], want[[0, 2, 3]])
+    early = cap_t.clone()
+    early[lo] = -1.0
+    got = ops.queue_flush(kind, t, s, req_off, early, cap_k, hi_t, cap_off, hz, slo, k_max)
+    assert torch.isnan(got[1]).all() and torch.equal(got[[0, 2, 3]], want[[0, 2, 3]])
 
 
 def test_queue_plain_version_is_the_same_on_the_card(cuda):
@@ -684,10 +798,8 @@ def test_queue_plain_version_is_the_same_on_the_card(cuda):
     full grid's first chunk's 8192 bucket (where the card once divided the
     quantiles by 100 as a reciprocal product, one ulp off in a p99)."""
     from repro_torch.kernels.queue_core import ref
-    from repro_torch.workloads import campaign as C
     from repro_torch.workloads import queueing as Q
-    cells = C.shard_cells(C.make_grid("full"), "0/252")[:C.QUEUE_CHUNK]
-    jobs = [j for c in cells for j in C._cell_start(c).jobs]
+    jobs = _full_chunk_jobs()
     buckets, caps = Q._plan(jobs)
     kind, *arrays, k_pad = Q.bucket_inputs(jobs, ("pw", 8192), buckets[("pw", 8192)], caps)
     cpu = ref.queue_core_reference(kind, *(torch.from_numpy(a) for a in arrays), k_pad)
@@ -721,7 +833,7 @@ def test_queue_kernel_rejects_k_pad_below_a_jobs_slots(cuda):
 
 
 def test_queue_kernel_is_composition_independent(cuda):
-    """A job's metrics on the card are the same bits alone and co-batched."""
+    """A job's metrics on the card are the same bits alone and co-launched."""
     from repro_torch.workloads.queueing import simulate_queue_batch
     jobs = _queue_jobs(42, n_jobs=6) + _queue_edge_jobs()[:4]
     tags = []
@@ -731,33 +843,47 @@ def test_queue_kernel_is_composition_independent(cuda):
         assert simulate_queue_batch([job], device="cuda")[0] == m
 
 
-def test_campaign_traces_on_the_card_match_the_goldens(cuda, tmp_path, monkeypatch):
-    """A traced mix_tiny campaign on the card, with the plain queue core made
-    to raise: the 7 traces equal the goldens byte for byte, and the kernel
-    launched once per bucket of each chunk."""
-    from pathlib import Path
+def test_a_full_chunks_flush_is_one_launch(cuda, monkeypatch):
+    """``simulate_queue_batch`` on the first ``full`` chunk's 16 jobs (3
+    shape buckets): one launch, the plain versions raising."""
     from repro_torch.kernels.queue_core import ops
-    from repro_torch.workloads import campaign as C
-    from repro_torch.workloads.queueing import plan_queue_buckets
+    from repro_torch.workloads import queueing as Q
 
     def forbidden(*args, **kwargs):
         raise AssertionError("the plain queue core ran on the card's path")
 
+    monkeypatch.setattr(ops, "queue_flush_reference", forbidden)
+    monkeypatch.setattr(ops, "queue_core_reference", forbidden)
+    jobs = _full_chunk_jobs()
+    assert len(Q.plan_queue_buckets(jobs)) == 3
+    before = ops.queue_flush.launches
+    got = Q.simulate_queue_batch(jobs)
+    assert ops.queue_flush.launches == before + 1 and len(got) == len(jobs)
+
+
+def test_campaign_traces_on_the_card_match_the_goldens(cuda, tmp_path, monkeypatch):
+    """A traced mix_tiny campaign on the card, with the plain queue core made
+    to raise: the 7 traces equal the goldens byte for byte, and the kernel
+    launched once a chunk (one flush)."""
+    from pathlib import Path
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import campaign as C
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain queue core ran on the card's path")
+
+    monkeypatch.setattr(ops, "queue_flush_reference", forbidden)
     monkeypatch.setattr(ops, "queue_core_reference", forbidden)
     cells = C.make_grid("mix_tiny")
-    before = ops.queue_core.launches
+    before = ops.queue_flush.launches
     art = C.run_campaign(cells, trace_dir=str(tmp_path), grid_name="mix_tiny")
-    launches = ops.queue_core.launches - before
+    launches = ops.queue_flush.launches - before
     golden = Path(__file__).resolve().parents[1] / "goldens" / "mix_tiny_traces"
     names = sorted(p.name for p in golden.glob("*.trace.jsonl"))
     assert names == sorted(p.name for p in tmp_path.glob("*.trace.jsonl")) and len(names) == 7
     for name in names:
         assert (tmp_path / name).read_bytes() == (golden / name).read_bytes(), name
-    want = 0
-    for i in range(0, len(cells), C.QUEUE_CHUNK):
-        jobs = [j for c in cells[i:i + C.QUEUE_CHUNK] for j in C._cell_start(c).jobs]
-        want += len(plan_queue_buckets(jobs))
-    assert launches == want
+    assert launches == -(-len(cells) // C.QUEUE_CHUNK) == 1
     assert art["throughput"]["queue_impls"] == {"cuda_batched": 14}
 
 
