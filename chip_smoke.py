@@ -68,7 +68,17 @@ Phases, each of which fails the run on any error:
    that run's first chunk and of the 192-job set beside the plain
    version's, its bytes bound and its chain bound (the longest job x 8
    cycles at the SM clock ``nvidia-smi`` reads meanwhile); and the phase
-   clocks' shares of a block's cycles on both flushes (``queue_phases``).
+   clocks' shares of a block's cycles on both flushes (``queue_phases``);
+7. control-plane tools (``control_plane_tools``, after ``campaign_full``):
+   the port's trace CLI (``python -m repro_torch.trace``) gates the card's
+   ``mix_tiny`` traces (``regress`` against the goldens, ``validate``,
+   ``replay`` and ``bisect`` against its golden on each); ``--grid full
+   --shard 0/252 --trace`` on the card in a run of its own (one launch a
+   chunk, plain versions raising), its 24 traces validated and replayed;
+   ``repro_torch.examples.sharded_campaign`` on the card (one launch for
+   each chunk of the cells each of its four campaigns executes); and the
+   paper's SC-vs-DC sweep, ``repro_torch.examples.consolidation_sim --ws
+   timeseries`` (host work; every claim must hold).
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` (five rows: flash, decode, mLSTM,
 scan, queue core) and ``{"ok": true, "device": ...}``.
@@ -77,7 +87,10 @@ repository checkout.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
 import gc
+import io
 import json
 import re
 import subprocess
@@ -1294,6 +1307,129 @@ def campaign_full_shard(torch, out_dir: Path):
     return launches, list(first[:-1]), first[-1]
 
 
+def quiet(fn, argv) -> tuple:
+    """(exit code, standard output) of ``fn(argv)`` with its output caught."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+def control_plane_tools(out_dir: Path, card_traces: Path) -> dict:
+    """The port's control-plane tools on the card's machine, none of the JAX
+    package: ``repro_torch.trace`` gates the card's ``mix_tiny`` traces
+    (``regress`` against the goldens; ``validate``, ``replay`` and
+    ``bisect`` against its golden on each); ``--grid full --shard 0/252
+    --trace`` on the card (a run of its own, so ``campaign_full``'s flush
+    timings stay as they were) with its 24 traces validated and replayed;
+    ``repro_torch.examples.sharded_campaign`` on the card (four
+    ``run_campaign`` calls: ``queue_flush`` must launch once for each
+    ``QUEUE_CHUNK`` of the cells each call executes); and
+    ``repro_torch.examples.consolidation_sim --ws timeseries`` (host work:
+    every paper claim must hold). The plain queue versions raise while the
+    two campaigns run. Returns the launches by run."""
+    from repro_torch import trace
+    from repro_torch.examples import consolidation_sim, sharded_campaign
+    from repro_torch.kernels.queue_core import ops
+    from repro_torch.workloads import campaign as C
+    golden = ROOT / "goldens" / "mix_tiny_traces"
+    failed, cli_calls = [], []
+
+    def gate(what, argv):
+        rc, out = quiet(trace.main, argv)
+        cli_calls.append(what)
+        if rc != 0:
+            failed.append((what, rc, out[-2000:]))
+
+    names = sorted(p.name for p in golden.glob("*.trace.jsonl"))
+    t0 = time.perf_counter()
+    gate("regress mix_tiny", ["regress", golden, card_traces])
+    for n in names:
+        for cmd in ("validate", "replay"):
+            gate(f"{cmd} {n}", [cmd, card_traces / n])
+        gate(f"bisect {n}", ["bisect", golden / n, card_traces / n])
+    mix_tiny_s, mix_tiny_calls = time.perf_counter() - t0, len(cli_calls)
+
+    full_traces, full_out = out_dir / "full_traces", out_dir / "full_shard_traced.json"
+    restore = forbid_plain_queue()
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        full_rc = C.main(["--grid", "full", "--shard", "0/252", "--trace",
+                          str(full_traces), "--out", str(full_out)])
+        full_wall = time.perf_counter() - t0
+    finally:
+        full_launches = ops.queue_flush.launches
+        restore()
+    full_cells = len(C.shard_cells(C.make_grid("full"), "0/252"))
+    full_want = -(-full_cells // C.QUEUE_CHUNK)
+    traces = sorted(full_traces.glob("*.trace.jsonl"))
+    if full_rc != 0 or len(traces) != full_cells or full_launches != full_want:
+        failed.append(("full shard traced", full_rc, len(traces), full_launches, full_want))
+    t0 = time.perf_counter()
+    for p in traces:
+        for cmd in ("validate", "replay"):
+            gate(f"{cmd} {p.name}", [cmd, p])
+    full_cli_s = time.perf_counter() - t0
+
+    cells = C.make_grid("mix_tiny")
+    half = C.shard_cells(cells, "1/2")
+    executed_want = [len(C.shard_cells(cells, "0/2")), len(half) // 2,
+                     len(half) - len(half) // 2, len(cells)]
+    by_call_want = [(n, -(-n // C.QUEUE_CHUNK)) for n in executed_want]
+    sharded_want = sum(n for _, n in by_call_want)
+    calls, real_run = [], sharded_campaign.run_campaign
+
+    def counted_run(*args, **kw):
+        before = ops.queue_flush.launches
+        art = real_run(*args, **kw)
+        calls.append((art["throughput"]["executed"], ops.queue_flush.launches - before))
+        return art
+
+    sharded_campaign.run_campaign = counted_run
+    restore = forbid_plain_queue()
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rc, _ = quiet(sharded_campaign.main, ["--grid", "mix_tiny", "--workers", "1"])
+        sharded_wall = time.perf_counter() - t0
+    finally:
+        sharded_launches = ops.queue_flush.launches
+        sharded_campaign.run_campaign = real_run
+        restore()
+    if rc != 0 or sharded_launches != sharded_want or calls != by_call_want:
+        failed.append(("sharded_campaign", rc, calls, sharded_launches, sharded_want))
+
+    t0 = time.perf_counter()
+    rc, out = quiet(consolidation_sim.main, ["--ws", "timeseries"])
+    sim_wall = time.perf_counter() - t0
+    line = [ln for ln in out.splitlines() if ln.startswith("paper-claim validation:")]
+    claims = ast.literal_eval(line[0].split(":", 1)[1].strip()) if line else {}
+    held = {k: v for k, v in claims.items() if k != "cost_ratio_at_160"}
+    if rc != 0 or len(held) != 4 or not all(v is True for v in held.values()):
+        failed.append(("consolidation_sim", rc, claims))
+
+    emit({"phase": "control_plane_tools",
+          "mix_tiny_card_traces": {"traces": len(names), "cli_calls": mix_tiny_calls,
+                                   "cli_wall_s": mix_tiny_s},
+          "full_shard_traced": {"shard": "0/252", "cells": full_cells, "exit_code": full_rc,
+                                "wall_s": full_wall, "launches": full_launches,
+                                "launches_expected": full_want, "traces": len(traces),
+                                "cli_calls": len(cli_calls) - mix_tiny_calls,
+                                "validate_replay_cli_wall_s": full_cli_s},
+          "sharded_campaign": {"grid": "mix_tiny", "workers": 1, "wall_s": sharded_wall,
+                               "executed_and_launches_by_call": calls,
+                               "launches": sharded_launches,
+                               "launches_expected": sharded_want},
+          "consolidation_sim": {"argv": ["--ws", "timeseries"], "wall_s": sim_wall,
+                                "paper_claims": claims},
+          "failed": [str(f) for f in failed]})
+    if failed:
+        raise AssertionError(f"control-plane tools failed: {failed[:5]}")
+    return {"full, shard 0/252, traced": full_launches,
+            "sharded_campaign example (mix_tiny)": sharded_launches}
+
+
 def queue_bytes(args) -> int:
     """Bytes the queue core must move: t and s once for each request (8 B),
     the capacity tables (12 B an interval), the job tables (kind, offsets,
@@ -1428,6 +1564,7 @@ def main() -> int:
     by_instance = {"mix_tiny, traced": dict(queue_ops.queue_flush.instance_launches)}
     queue_launches["full, shard 0/252"], *full_chunk = campaign_full_shard(torch, campaign_dir)
     by_instance["full, shard 0/252"] = dict(queue_ops.queue_flush.instance_launches)
+    queue_launches.update(control_plane_tools(campaign_dir, campaign_dir / "traces"))
     set_192 = flush_tensors(torch, queue_sets()["piecewise_192"], dev)
     queue_full_t = measure_queue(torch, peak, "full, shard 0/252, first chunk", *full_chunk)
     queue_192_t = measure_queue(torch, peak, "piecewise_192", *set_192)

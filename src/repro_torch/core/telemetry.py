@@ -38,8 +38,8 @@ Design constraints (enforced by the ``policy_engine`` bench gate):
     and the header records ``dropped_events`` when it overflows.
 
 Analysis helpers live here too (summaries, causality report, validation,
-Perfetto/Chrome trace-event export); ``python -m repro.trace`` is the CLI
-over them. The campaign runner's ``--trace`` flag spools one JSONL trace
+Perfetto/Chrome trace-event export); ``python -m repro_torch.trace`` is the
+CLI over them. The campaign runner's ``--trace`` flag spools one JSONL trace
 per cell and folds ``summarize_events`` output into the artifact.
 
 The port's own copy of ``repro.core.telemetry`` with the same logic.

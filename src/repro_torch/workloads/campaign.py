@@ -892,7 +892,7 @@ def _main_run(argv) -> int:
     ap.add_argument("--trace", nargs="?", const="", default=None,
                     metavar="DIR",
                     help="spool a control-plane trace per cell (JSONL, "
-                         "analyzable with `python -m repro.trace`) into "
+                         "analyzable with `python -m repro_torch.trace`) into "
                          "DIR (default: <out>.traces/) and fold a "
                          "trace_summary into each row")
     args = ap.parse_args(argv)

@@ -2,10 +2,11 @@
 
 A traced ``mix_tiny`` run of the port (the queue core's plain version on the
 CPU) must write the golden traces byte for byte and pass the trace
-regression gate. Its rows, and those of ``tiny``, must equal the JAX
-campaign's in every column the queues do not produce, and agree within the
-golden tolerance of ``tests/test_queueing_equivalence.py`` in those they do
-(both batched cores are float32). Shards merge to the single-shot
+regression gate, the JAX package's and the port's own. Its rows, and those
+of ``tiny``, must equal the JAX campaign's in every column the queues do not
+produce, and agree within the golden tolerance of
+``tests/test_queueing_equivalence.py`` in those they do (both batched cores
+are float32). Shards merge to the single-shot
 reductions bit for bit, as in the JAX package.
 """
 import json
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro.trace import main as trace_main  # noqa: E402
 from repro.workloads import campaign as jax_campaign  # noqa: E402
+from repro_torch.trace import main as port_trace_main  # noqa: E402
 from repro_torch.workloads import campaign  # noqa: E402
 
 GOLDEN = Path(__file__).resolve().parents[1] / "goldens" / "mix_tiny_traces"
@@ -45,6 +47,7 @@ def test_mix_tiny_traces_equal_the_goldens(mix_tiny):
     for name in names:
         assert (trace_dir / name).read_bytes() == (GOLDEN / name).read_bytes(), name
     assert trace_main(["regress", str(GOLDEN), str(trace_dir)]) == 0
+    assert port_trace_main(["regress", str(GOLDEN), str(trace_dir)]) == 0
     assert art["schema"] == jax_campaign.SCHEMA == "phoenix-campaign-v7"
     assert art["throughput"]["queue_impls"] == {"torch_batched": 14}
 

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and it
-never falls back to the CPU when the card is asked for and missing."""
+never falls back to the CPU when the card is asked for and missing. With both
+blocked it serves, runs the campaign, gates its own traced ``mix_tiny``
+against the goldens with its own trace CLI, and runs the paper experiment."""
 import os
 import re
 import subprocess
@@ -36,6 +38,17 @@ with tempfile.TemporaryDirectory() as tmp:
     assert campaign.main(['--grid', 'mix_tiny', '--policy', 'paper', '--device', 'cpu',
                           '--out', out]) == 0
     assert os.path.exists(out)
+    traces = os.path.join(tmp, 'traces')
+    assert campaign.main(['--grid', 'mix_tiny', '--device', 'cpu', '--trace', traces,
+                          '--out', os.path.join(tmp, 'mix_tiny.json')]) == 0
+    from repro_torch import trace
+    assert trace.main(['regress', 'goldens/mix_tiny_traces', traces]) == 0
+    first = sorted(f for f in os.listdir(traces) if f.endswith('.trace.jsonl'))[0]
+    assert trace.main(['replay', os.path.join(traces, first)]) == 0
+from repro_torch.core import experiment
+res = experiment.run_experiment(seed=0, sizes=(160,), horizon=2 * 86400.0)
+assert res['DC'][160].completed > 0 and res['SC'].submitted == res['DC'][160].submitted
+print('experiment completed', res['DC'][160].completed)
 assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))
                for m, mod in sys.modules.items() if mod is not None)
 print('imported', len(names))
@@ -70,6 +83,9 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "served 2 requests" in proc.stdout
     assert "campaign grid=mix_tiny cells=1" in proc.stdout
+    assert "regress: pass — 7 cell(s) within thresholds" in proc.stdout
+    assert "ok: replayed" in proc.stdout
+    assert "experiment completed" in proc.stdout
     assert int(proc.stdout.split("imported")[-1]) >= 15
 
 
