@@ -7,7 +7,8 @@ Phases, each of which fails the run on any error:
 
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
-   flash, decode, mLSTM and scan instance its registers and spills
+   flash, flash backward, decode, mLSTM and scan (forward and backward)
+   instance its registers and spills
    (``-Xptxas -v``; a queue register instance may have no stack frame)
    and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
    that spills, or a tensor-core instance -- bf16 flash, the mLSTM state and
@@ -78,10 +79,28 @@ Phases, each of which fails the run on any error:
    ``repro_torch.examples.sharded_campaign`` on the card (one launch for
    each chunk of the cells each of its four campaigns executes); and the
    paper's SC-vs-DC sweep, ``repro_torch.examples.consolidation_sim --ws
-   timeseries`` (host work; every claim must hold).
+   timeseries`` (host work; every claim must hold);
+8. training: the two backward kernels (flash attention's dQ and dK/dV
+   kernels, the RG-LRU scan's reverse recurrence) against their plain
+   formulas on the card (flash at recurrentgemma-2b's [1, 3072, 10, 1,
+   256] window 2048 and qwen2-7b's heads, bf16 and float32 at head dims
+   16, 64, 128 and 256, with the forward kernels' log-sum-exp; the scan at
+   [1, 3072, 2560], [4, 512, 2560] and the launchers' shapes) and timed
+   beside their bounds (flash also beside SDPA's backward with the same
+   mask); ``train_reduced``: three steps of the train launcher's reduced
+   recurrentgemma-2b and qwen2-7b on the card against the same steps on
+   the CPU; ``train_launcher``: ``python -m repro_torch.launch.train
+   --reduced --arch recurrentgemma-2b`` for 4 steps, resumed to 6, against
+   an uninterrupted 6; ``train_full_width``: recurrentgemma-2b at its
+   published widths through ``ElasticTrainer.train_steps``, 4 steps of 1 ×
+   3072 tokens, remat ``block``. Each training run zeroes every launch
+   count, makes every plain version (forward and backward) raise, and
+   checks the exact launches of both forward and both backward kernels.
 Earlier lines are JSON records; the last three are the card line from
-``nvidia-smi``, ``{"kernels": [...]}`` (five rows: flash, decode, mLSTM,
-scan, queue core) and ``{"ok": true, "device": ...}``.
+``nvidia-smi``, ``{"kernels": [...]}`` (seven rows: flash, decode, mLSTM,
+scan, queue core, flash backward, scan backward; the forward rows'
+``launches_by_run`` also count the training runs) and ``{"ok": true,
+"device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository checkout.
 """
@@ -92,6 +111,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -114,8 +134,12 @@ SERVE_ARGV = ["--device", "cuda", "--no-reduced", "--requests", "8",
               "--devices", "1"]
 
 
+T0 = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON record a line, with the seconds since the script started."""
+    print(json.dumps({**record, "elapsed_s": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 def card_line() -> str:
@@ -181,9 +205,10 @@ def max_err(torch, out, ref) -> float:
 # wgmma (HGMMA) and TMA (UTMALDG)); every instance must be free of spills.
 BUILD_REPORTS = {
     "flash_attention": ("flash_build", r"flash_(tc|cc)_kernel", r"flash_tc"),
+    "flash_attention_bwd": ("flash_bwd_build", r"flash_bwd_\w+_kernel", None),
     "decode_attention": ("decode_build", r"decode_split_kernel", None),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
-    "rglru_scan": ("scan_build", r"rglru_scan_kernel", None),
+    "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", None),
     "queue_core": ("queue_build", r"queue_flush_kernel", None),
 }
 
@@ -715,49 +740,61 @@ def small_configs():
                                                    **f32), 40)]
 
 
-def serve_counted(torch, argv):
-    """Run the launcher (``repro_torch.launch.serve``) with ``argv``. Every
-    launch counter is zeroed just before and read just after; the plain
-    versions raise meanwhile. Checks the launch counts against the model's
-    layers and returns (launches, report)."""
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.mlstm_chunk import ops as mops
-    from repro_torch.kernels.rglru_scan import ops as rops
-    from repro_torch.launch import serve
+PLAIN_VERSIONS = {  # wrapper module, plain version a CPU tensor takes
+    "flash_attention": ("flash_attention", "flash_attention_reference"),
+    "flash_attention_backward": ("flash_attention", "flash_attention_backward_reference"),
+    "decode_attention": ("decode_attention", "decode_attention_reference"),
+    "mlstm_chunk": ("mlstm_chunk", "mlstm_chunk_reference"),
+    "rglru_scan": ("rglru_scan", "rglru_scan_reference"),
+    "rglru_scan_backward": ("rglru_scan", "rglru_scan_backward_reference"),
+}
+TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "rglru_scan",
+                 "rglru_scan_backward")
 
-    plains = {"flash_attention": (fops, "flash_attention_reference"),
-              "decode_attention": (dops, "decode_attention_reference"),
-              "mlstm_chunk": (mops, "mlstm_chunk_reference"),
-              "rglru_scan": (rops, "rglru_scan_reference")}
-    wrappers = {"flash_attention": fops.flash_attention,
-                "decode_attention": dops.decode_attention,
-                "mlstm_chunk": mops.mlstm_chunk,
-                "rglru_scan": rops.rglru_scan}
+
+@contextlib.contextmanager
+def counted_on_card(launches: dict):
+    """Zero every model kernel's launch count, make every plain version
+    raise, and on leaving fill ``launches`` (wrapper name -> launches) and
+    restore the plain versions."""
+    import importlib
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+            for name, (mod, _) in PLAIN_VERSIONS.items()}
 
     def plain_forbidden(*args, **kwargs):
         raise AssertionError("a plain kernel version ran on the main path")
 
-    saved = {name: getattr(mod, attr) for name, (mod, attr) in plains.items()}
-    for mod, attr in plains.values():
-        setattr(mod, attr, plain_forbidden)
-    torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    saved = {name: getattr(mods[name], attr) for name, (_, attr) in PLAIN_VERSIONS.items()}
+    for name, (_, attr) in PLAIN_VERSIONS.items():
+        setattr(mods[name], attr, plain_forbidden)
+        getattr(mods[name], name).launches = 0
     try:
-        report = serve.run(argv)
+        yield launches
     finally:
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        for name, (mod, attr) in plains.items():
-            setattr(mod, attr, saved[name])
+        launches.update({name: getattr(mods[name], name).launches for name in PLAIN_VERSIONS})
+        for name, (_, attr) in PLAIN_VERSIONS.items():
+            setattr(mods[name], attr, saved[name])
+
+
+def serve_counted(torch, argv):
+    """Run the launcher (``repro_torch.launch.serve``) with ``argv``, counted
+    (``counted_on_card``). Checks the launch counts against the model's
+    layers and returns (launches, report)."""
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    with counted_on_card(launches):
+        report = serve.run(argv)
     args = serve.build_parser().parse_args(argv)
     cfg, rounds = report["cfg"], report["rounds"]
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ("attn", "local") for k in kinds)
-    want = {"flash_attention": rounds * n_attn,
-            "decode_attention": rounds * n_attn * (args.max_new - 1),
-            "mlstm_chunk": rounds * kinds.count("mlstm"),
-            "rglru_scan": rounds * kinds.count("rglru")}
+    want = {name: 0 for name in PLAIN_VERSIONS}
+    want.update({"flash_attention": rounds * n_attn,
+                 "decode_attention": rounds * n_attn * (args.max_new - 1),
+                 "mlstm_chunk": rounds * kinds.count("mlstm"),
+                 "rglru_scan": rounds * kinds.count("rglru")})
     done = report["completed"]
     ok_tokens = len(done) == args.requests and all(
         r.done is not None and len(r.done) == args.max_new and (r.done >= 0).all()
@@ -820,7 +857,9 @@ def serve_reduced_defaults(torch, arch: str):
     return launches
 
 
-PORT_KERNELS = r"flash_(tc|cc)_kernel|decode_split_kernel|mlstm_\w+_kernel|rglru_scan_kernel"
+PORT_KERNELS = (r"flash_(tc|cc)_kernel|flash_bwd_\w+_kernel|decode_split_kernel|"
+                r"mlstm_\w+_kernel|rglru_scan(_bwd)?_kernel")
+GEMM_KERNELS = r"nvjet|gemm|cutlass|xmma"
 
 
 def _device_breakdown(torch, prof, wall_s: float, steps: int) -> dict:
@@ -1512,6 +1551,380 @@ def queue_phases(torch, sets) -> None:
         emit({"phase": "queue_phases", "set": name, **phases.measure(lib, args, k_max)})
 
 
+# ------------------------------------------------------------------ training
+
+def train_launches(cfg, steps: int, remat: bool) -> dict:
+    """Exact launches of ``steps`` train steps: each forward kernel once a
+    layer, twice under remat (the backward recomputes each repetition), each
+    backward kernel once a layer."""
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    n_rglru = kinds.count("rglru")
+    fwd = 2 if remat else 1
+    want = {name: 0 for name in PLAIN_VERSIONS}
+    want.update({"flash_attention": fwd * n_attn * steps,
+                 "flash_attention_backward": n_attn * steps,
+                 "rglru_scan": fwd * n_rglru * steps,
+                 "rglru_scan_backward": n_rglru * steps})
+    return want
+
+
+def grad_tol(torch, dtype) -> tuple:
+    """(rtol, atol, rel_tol) of a gradient check, each gradient held on its
+    own: every element within rtol * |ref| + atol * rms(ref), and the whole
+    tensor within ||got - ref|| <= rel_tol * ||ref||. bf16: one rounding of
+    the same float32 value lands at most one ulp (2^-7 |ref|) away, and
+    1e-2 rms for float32 sums in another order before it; float32: sums
+    over up to S keys or steps in another order, 1e-5 relative and 1e-4 rms
+    (5e-5 rms failed float32 at recurrentgemma-2b's training shape, 2048
+    keys a query)."""
+    return (2.0 ** -7, 1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4, 1e-4)
+
+
+def grad_errors(torch, got, ref, names, dtype, scale: float) -> tuple:
+    """Each gradient against its plain version under ``grad_tol``, and all
+    of them within the one bound ``scale`` x max(1, their largest value)
+    that the checks held before: (the largest absolute error over them, a
+    record per gradient -- its largest error beside its rms, its relative
+    error and its worst element's share of that element's tolerance -- and
+    whether all pass)."""
+    rtol, atol, rel_tol = grad_tol(torch, dtype)
+    bound = scale * max(1.0, max(r.float().abs().max().item() for r in ref))
+    records, ok = [], True
+    for name, g, r in zip(names, got, ref):
+        err = max_err(torch, g, r)
+        g, r = g.float(), r.float()
+        d = (g - r).abs()
+        rms = r.square().mean().sqrt()
+        share = (d / (rtol * r.abs() + atol * rms).clamp_min(1e-30)).max().item()
+        rel = (d.norm() / r.norm().clamp_min(1e-30)).item()
+        records.append({"grad": name, "max_abs_err": err, "rms": rms.item(),
+                        "rel_err": rel, "worst_element_share": share})
+        ok = ok and share <= 1.0 and rel <= rel_tol and err < bound and g.shape == r.shape
+    tol = {"rtol": rtol, "atol_rms": atol, "rel_tol": rel_tol, "max_abs": bound}
+    return max(rec["max_abs_err"] for rec in records), {"tol": tol, "grads": records}, ok
+
+
+def _flash_bwd_inputs(torch, gen, dev, B, S, H, K, hd, dtype):
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def check_flash_backward(torch, gen, dev):
+    """The backward kernels' dq, dk, dv against the plain formulas on the
+    card, each under ``grad_tol``, from the forward kernel's output and
+    log-sum-exp (itself held against the plain one: float32 1e-4, bf16
+    1e-3)."""
+    from repro_torch.kernels.flash_attention import ops
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, S, H, K, hd, window, causal, dtype)
+        (1, 3072, 10, 1, 256, 2048, True, bf16),   # recurrentgemma-2b, train_full_width
+        (4, 512, 28, 4, 128, 0, True, bf16),       # qwen2-7b's heads
+        (8, 128, 4, 1, 16, 16, True, f32),         # reduced recurrentgemma-2b, launcher
+        (8, 128, 4, 2, 16, 0, True, f32),          # reduced qwen2-7b, launcher
+        (2, 300, 8, 2, 16, 100, True, bf16), (2, 300, 8, 2, 64, 100, True, f32),
+        (2, 300, 8, 2, 64, 100, True, bf16), (1, 130, 4, 2, 64, 0, False, bf16),
+        (1, 300, 10, 1, 256, 65, True, f32), (2, 200, 6, 2, 128, 0, False, f32),
+    ]
+    errs = {}
+    for B, S, H, K, hd, win, causal, dtype in cases:
+        q, k, v, do = _flash_bwd_inputs(torch, gen, dev, B, S, H, K, hd, dtype)
+        o, lse = ops._launch(q, k, v, causal=causal, window=win, lse=True)
+        _, lse_ref = ops.flash_attention_reference(q, k, v, causal=causal, window=win,
+                                                   return_lse=True)
+        got = ops.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=win)
+        ref = ops.flash_attention_backward_reference(q, k, v, o, do, lse, causal=causal,
+                                                     window=win)
+        torch.cuda.synchronize()
+        err, report, ok = grad_errors(torch, got, ref, ("dq", "dk", "dv"), dtype,
+                                      {f32: 1e-4, bf16: 2e-2}[dtype])
+        lse_err = max_err(torch, lse, lse_ref)
+        lse_tol = {f32: 1e-4, bf16: 1e-3}[dtype]
+        emit({"phase": "check", "kernel": "flash_attention_backward",
+              "shape": [B, S, H, K, hd], "window": win, "causal": causal,
+              "dtype": str(dtype), "max_abs_err": err, **report,
+              "lse_max_abs_err": lse_err, "lse_tol": lse_tol})
+        if not (ok and lse_err < lse_tol and all(g.dtype == dtype for g in got)):
+            raise AssertionError(f"flash_attention backward disagrees: {report} "
+                                 f"or lse {lse_err} >= {lse_tol}")
+        errs.setdefault((B, S, H, K, hd), err)
+        del q, k, v, do, o, lse, lse_ref, got, ref
+    return errs
+
+
+def check_rglru_backward(torch, gen, dev):
+    """da, db, dh0 of the backward kernel against the plain reverse
+    recurrence on the card, each under ``grad_tol`` (float32)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.launch.train import build_parser
+    targs = build_parser().parse_args([])
+    W = reduced_config(get_config("recurrentgemma-2b")).lru_width
+    cases = [(1, 3072, 2560), (4, 512, 2560), (targs.batch, targs.seq, W),
+             launcher_default_shapes()[1], (2, 10, 256), (3, 1, 128), (1, 5000, 64),
+             (2, 300, 33)]
+    errs = {}
+    for B, S, W in cases:
+        a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
+        h = ops.rglru_scan(a, b, h0)
+        dh = torch.randn(B, S, W, generator=gen, device=dev)
+        got = ops.rglru_scan_backward(a, h, h0, dh)
+        ref = ops.rglru_scan_backward_reference(a, h, h0, dh)
+        torch.cuda.synchronize()
+        err, report, ok = grad_errors(torch, got, ref, ("da", "db", "dh0"), torch.float32,
+                                      2e-5)
+        emit({"phase": "check", "kernel": "rglru_scan_backward", "shape": [B, S, W],
+              "plan": list(ops.scan_plan(S)), "max_abs_err": err, **report})
+        if not ok:
+            raise AssertionError(f"rglru_scan backward disagrees: {report}")
+        errs[(B, S, W)] = err
+    return errs
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal mask with ``window`` lets through: the
+    work of this input."""
+    return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(S))
+
+
+def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
+    """The backward kernels at a training shape (bf16), timed as the forward
+    kernels are (``time_interleaved``: CUDA graphs of 20 calls, 7 turns) in
+    turns with SDPA: ``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention`` with the same boolean mask, timed
+    whole (forward and backward) and its forward alone; ``library_ms`` is
+    the difference, the backward's share. The bound counts five products
+    over the visible pairs at the bf16 tensor-core rate, and q, k, v, o,
+    dO, lse in and dq, dk, dv out once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v, do = _flash_bwd_inputs(torch, gen, dev, B, S, H, K, hd, torch.bfloat16)
+    o, lse = ops._launch(q, k, v, causal=True, window=window, lse=True)
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(S, device=dev)[None, :]
+    mask = (kp <= qp) & ((kp > qp - window) if window > 0 else True)
+    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, enable_gqa=True)
+
+    with torch.no_grad():
+        sdpa_err = max_err(torch, sdpa().transpose(1, 2), o)   # same function
+    turns = time_interleaved(torch, {
+        "kernel": lambda: ops.flash_attention_backward(q, k, v, o, do, lse, window=window),
+        "library_fwd_bwd": lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), ldo),
+        "library_fwd": lambda: sdpa().detach()}, [()], iters=5)
+    plain = time_ms(torch, lambda: ops.flash_attention_backward_reference(
+        q, k, v, o, do, lse, window=window), [()], iters=2, warmup=1)
+    flops = 5 * 2 * B * H * hd * visible_pairs(S, window)
+    nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
+        + 2 * (B * S * H * hd + 2 * B * S * K * hd)
+    library = turns["library_fwd_bwd"]["median"] - turns["library_fwd"]["median"]
+    return {**measured(turns["kernel"]["median"], plain, library, flops, nbytes,
+                       peak[0], peak[1]),
+            "min_max_ms": turns["kernel"]["min_max"], "eager_ms": turns["kernel"]["eager_ms"],
+            "library_fwd_bwd_ms": turns["library_fwd_bwd"]["median"],
+            "library_fwd_ms": turns["library_fwd"]["median"],
+            "library_note": "SDPA (boolean mask, enable_gqa) forward+backward minus its "
+                            "forward", "sdpa_vs_forward_kernel_max_abs_err": sdpa_err,
+            "blocks": {"dq": -(-S // 32) * B * H, "dkdv": -(-S // 16) * B * K}}
+
+
+def measure_rglru_backward(torch, gen, dev, peak, B, S, W):
+    """The backward kernel at recurrentgemma-2b's training shape (float32),
+    as ``measure_rglru`` times the forward (CUDA graphs of 20 calls, 7
+    turns). Bound: a, h, dh and h0 read and da, db, dh0 written once; two
+    FMA-sized operations and a product a step at the float32 rate. No
+    library yardstick: no single PyTorch call computes the reverse
+    recurrence."""
+    from repro_torch.kernels.rglru_scan import ops
+    a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
+    h = ops.rglru_scan(a, b, h0)
+    dh = torch.randn(B, S, W, generator=gen, device=dev)
+    inputs = [(a, h, h0, dh)]
+    turns = time_interleaved(torch, {"kernel": ops.rglru_scan_backward}, inputs)
+    plain = time_ms(torch, ops.rglru_scan_backward_reference, inputs, iters=1, warmup=1)
+    flops = 3 * B * S * W
+    nbytes = 4 * (5 * B * S * W + 2 * B * W)
+    plan = ops.scan_plan(S)
+    one = turns["kernel"]
+    return {**measured(one["median"], plain, None, flops, nbytes, peak[2], peak[1]),
+            "min_max_ms": one["min_max"], "eager_ms": one["eager_ms"],
+            "scan_plan": list(plan), "blocks": plan.clusters * -(-W // 64) * B}
+
+
+def _metrics(m: dict) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def train_reduced(torch, dev, arch: str, steps: int = 3) -> dict:
+    """The train launcher's reduced config of ``arch`` (float32, head_dim
+    16, batch 8 x 128 tokens, remat "block"): ``steps`` steps on the CPU (the
+    plain versions), then the same weights and batches on the card, counted
+    with the plain versions raising. loss and nll 1e-4, grad_norm 1e-4
+    relative: float32 sums in another order, compounded over the steps."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import build_parser
+    from repro_torch.training.train_step import init_state, make_train_step, train_state
+    args = build_parser().parse_args([])
+    cfg = reduced_config(get_config(arch))
+    tcfg = TrainConfig()
+    data = SyntheticLM(cfg, seed=0)
+    batches = [data.batch(i, args.batch, args.seq) for i in range(steps)]
+    cpu = init_state(cfg, seed=0, device="cpu")
+    card = train_state(cpu.params.copy_to(dev))
+    step = make_train_step(cfg, tcfg)
+    want, got, launches = [], [], {}
+    for b in batches:
+        cpu, m = step(cpu, b)
+        want.append(_metrics(m))
+    with counted_on_card(launches):
+        for b in batches:
+            card, m = step(card, {k: t.to(dev) for k, t in b.items()})
+            got.append(_metrics(m))
+        torch.cuda.synchronize()
+    expected = train_launches(cfg, steps, tcfg.remat != "none")
+    diffs = [{k: abs(g[k] - w[k]) / (max(1.0, abs(w[k])) if k == "grad_norm" else 1.0)
+              for k in w} for g, w in zip(got, want)]
+    emit({"phase": "train_reduced", "arch": arch, "batch": [args.batch, args.seq],
+          "steps": steps, "remat": tcfg.remat, "card": got, "cpu": want, "diff": diffs,
+          "tol": 1e-4, "launches": launches, "expected_launches": expected})
+    if launches != expected:
+        raise AssertionError(f"{arch}: launches {launches} != {expected}")
+    if not all(d < 1e-4 for row in diffs for d in row.values()):
+        raise AssertionError(f"{arch}: card and CPU training disagree: {diffs}")
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+def train_launcher(torch, out_dir: Path) -> dict:
+    """``python -m repro_torch.launch.train --reduced --arch recurrentgemma-2b``
+    in this process on the card: ``--steps 4 --ckpt-every 2``, then the same
+    command with ``--steps 6`` (it must resume at step 4), and an
+    uninterrupted 6-step run beside it; the resumed step-6 loss must equal
+    the uninterrupted one. Counted, plain versions raising."""
+    import shutil
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import train
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    base = ["--reduced", "--arch", "recurrentgemma-2b"]
+    resumed = base + ["--ckpt-dir", str(out_dir / "resumed")]
+    straight = base + ["--ckpt-dir", str(out_dir / "straight")]
+    launches, outs = {}, []
+    with counted_on_card(launches):
+        for argv in (resumed + ["--steps", "4", "--ckpt-every", "2"],
+                     resumed + ["--steps", "6", "--log", str(out_dir / "resumed.json")],
+                     straight + ["--steps", "6", "--log", str(out_dir / "straight.json")]):
+            rc, out = quiet(train.main, argv)
+            if rc != 0:
+                raise AssertionError(f"train {argv} exited {rc}")
+            outs.append(out)
+        torch.cuda.synchronize()
+    first_lines = [o.splitlines()[0] for o in outs]
+    a = json.loads((out_dir / "resumed.json").read_text())[-1]
+    b = json.loads((out_dir / "straight.json").read_text())[-1]
+    cfg = reduced_config(get_config("recurrentgemma-2b"))
+    expected = train_launches(cfg, 4 + 2 + 6, True)
+    emit({"phase": "train_launcher", "first_lines": first_lines,
+          "resumed_step_6": a, "uninterrupted_step_6": b, "launches": launches,
+          "expected_launches": expected})
+    if not (first_lines[0].endswith("start_step=0") and first_lines[1].endswith(
+            "start_step=4") and "done; checkpoint at" in outs[1]):
+        raise AssertionError(f"the launcher did not resume: {first_lines}")
+    if a != b:
+        raise AssertionError(f"resumed step 6 {a} != uninterrupted {b}")
+    if launches != expected:
+        raise AssertionError(f"train launcher launches {launches} != {expected}")
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+def train_full_width(torch, dev, out_dir: Path, steps: int = 4) -> dict:
+    """recurrentgemma-2b at its published widths (bf16 weights from seed 0,
+    float32 AdamW state) through the port's ``ElasticTrainer.train_steps``,
+    batch 1 x 3072 tokens (longer than the 2048 window), remat "block", no
+    checkpoint. Per step: loss, grad_norm, wall ms (host clock around a
+    step that ends in a synchronize); peak device memory; exact launches of
+    the forward and backward kernels."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.elastic import ElasticTrainer
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    cfg = get_config("recurrentgemma-2b")
+    tcfg = TrainConfig(remat="block")
+    B, S = 1, 3072
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer(cfg, tcfg, global_batch=B, seq_len=S, ckpt_dir=str(out_dir),
+                             data_fn=SyntheticLM(cfg, seed=0).data_fn)
+    trainer.start([dev])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.state.params.parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    launches, rows = {}, []
+    with counted_on_card(launches):
+        for _ in range(steps):
+            t = time.perf_counter()
+            m = trainer.train_steps(1)
+            torch.cuda.synchronize()
+            rows.append({"step": m["step"], "loss": m["loss"], "nll": m["nll"],
+                         "grad_norm": m["grad_norm"],
+                         "wall_ms": (time.perf_counter() - t) * 1e3})
+    expected = train_launches(cfg, steps, True)
+    steady = sorted(r["wall_ms"] for r in rows[1:])
+    step_ms = steady[len(steady) // 2]
+    record = {"phase": "train_full_width", "arch": cfg.name, "params": n_params,
+              "batch": [B, S], "remat": tcfg.remat, "dtype": cfg.param_dtype,
+              "steps": rows, "loss_step_1": rows[0]["loss"],
+              "step_ms_median_steps_2_on": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+              "init_s": init_s, "state_bytes_after_init": state_bytes,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "expected_launches": expected,
+              "nvidia_smi": card_line()}
+    emit(record)
+    profile_training(torch, trainer)
+    finite = all(math.isfinite(r[k]) for r in rows for k in ("loss", "nll", "grad_norm"))
+    if not (finite and launches == expected and n_params > 2.8e9):
+        raise AssertionError(f"full-width training failed: {record}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+def profile_training(torch, trainer) -> None:
+    """torch.profiler over one more full-width step (after the counted
+    ones): device busy and idle share, kernels by name, and device time by
+    family: cuBLAS products, the port's kernels, everything else."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_steps(1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    breakdown = _device_breakdown(torch, prof, wall_s, 1)
+    us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total  # noqa: E731
+    families = {"gemm": 0.0, "port_kernels": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            family = ("port_kernels" if re.search(PORT_KERNELS, e.key) else
+                      "gemm" if re.search(GEMM_KERNELS, e.key) else "other")
+            families[family] += us(e) / 1e3
+    emit({"phase": "train_profile", "arch": trainer.cfg.name, "note": "profiler on: wall "
+          "times include its recording overhead", "step": breakdown,
+          "device_ms_by_family": families})
+
+
 def main() -> int:
     try:
         import torch
@@ -1557,6 +1970,11 @@ def main() -> int:
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
+    flash_bwd_err = check_flash_backward(torch, gen, dev)
+    rglru_bwd_err = check_rglru_backward(torch, gen, dev)
+    flash_bwd_t = measure_flash_backward(torch, gen, dev, peak, 1, 3072, 10, 1, 256, 2048)
+    flash_bwd_qwen_t = measure_flash_backward(torch, gen, dev, peak, 4, 512, 28, 4, 128, 0)
+    rglru_bwd_t = measure_rglru_backward(torch, gen, dev, peak, 1, 3072, 2560)
     from repro_torch.kernels.queue_core import ops as queue_ops
     queue_err = check_queue(torch, dev)
     campaign_dir = ROOT / "build" / "chip_smoke_campaign"
@@ -1590,6 +2008,16 @@ def main() -> int:
         del report                              # free the weights before the next
         gc.collect()
         torch.cuda.empty_cache()
+    train_runs = {f"train_reduced {arch} (3 steps)": train_reduced(torch, dev, arch)
+                  for arch in ("recurrentgemma-2b", "qwen2-7b")}
+    train_runs["train_launcher (4 + 2 + 6 steps)"] = train_launcher(
+        torch, ROOT / "build" / "chip_smoke_train")
+    train_runs["train_full_width recurrentgemma-2b (4 steps)"] = train_full_width(
+        torch, dev, ROOT / "build" / "chip_smoke_train_full")
+    for run, counts in train_runs.items():
+        for kernel, n in counts.items():
+            if n:
+                launches.setdefault(kernel, {})[run] = n
     kernels = [
         kernel_row("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:80",
@@ -1619,11 +2047,29 @@ def main() -> int:
                    replaces_kind="XLA programs (jit(vmap(lax.scan))), not Pallas",
                    piecewise_192=shape_figures("192 piecewise jobs, 7200 s", queue_err,
                                                queue_192_t)),
+        kernel_row("flash_attention_backward", "src/repro_torch/kernels/flash_attention/"
+                   "csrc/flash_attention_bwd.cu", "src/repro/models/attention.py:83",
+                   flash_bwd_err[(1, 3072, 10, 1, 256)], flash_bwd_t,
+                   launches["flash_attention_backward"],
+                   replaces_kind="new: the JAX package differentiates chunked_causal_attention "
+                                 "through XLA; no Pallas backward",
+                   shape=[1, 3072, 10, 1, 256, "window 2048", "bf16"],
+                   qwen2_heads=shape_figures([4, 512, 28, 4, 128], flash_bwd_err[
+                       (4, 512, 28, 4, 128)], flash_bwd_qwen_t)),
+        kernel_row("rglru_scan_backward", "src/repro_torch/kernels/rglru_scan/csrc/"
+                   "rglru_scan.cu", "src/repro/models/rglru.py:68",
+                   rglru_bwd_err[(1, 3072, 2560)], rglru_bwd_t,
+                   launches["rglru_scan_backward"],
+                   replaces_kind="new: the JAX package differentiates lax.associative_scan "
+                                 "through XLA; no Pallas backward",
+                   shape=[1, 3072, 2560, "float32"]),
     ]
+    emit({"phase": "done"})
     print(card, flush=True)
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

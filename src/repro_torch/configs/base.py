@@ -1,4 +1,5 @@
-"""Model configuration dataclasses (the port's own copy of ``repro.configs.base``).
+"""Model and training configuration dataclasses (the port's own copy of
+``repro.configs.base``).
 
 Every architecture is a ``ModelConfig``: a decoder-only stack whose per-layer
 *kind* is ``block_pattern`` repeated over ``num_layers``. Block kinds:
@@ -82,3 +83,23 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Per-run training hyperparameters / distribution knobs (the JAX
+    package's fields and defaults). On one card ``zero1`` and
+    ``sequence_parallel`` change nothing; ``remat`` other than ``"none"``
+    recomputes each pattern repetition in the backward pass."""
+    microbatch: int = 0            # 0 -> no gradient accumulation
+    remat: str = "block"           # none | block | full
+    zero1: bool = True             # shard optimizer state over data axis
+    sequence_parallel: bool = False
+    grad_compression: str = "none" # none | int8
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4

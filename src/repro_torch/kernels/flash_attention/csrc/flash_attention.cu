@@ -6,6 +6,10 @@
 // reads kv head h / G, scale 1/sqrt(hd), masked logits -1e30, visible keys
 // ki <= qi (causal) and ki > qi - window, output acc / max(l, 1e-30) in q's
 // dtype. Layout [B, S, H, hd] / [B, S, K, hd], head_dim 16, 64, 128 or 256.
+// For training, either kernel also writes each row's log-sum-exp of the
+// scaled logits (float32 [B, H, S], natural log) where the caller passes a
+// buffer; serving passes a null pointer and the kernels skip that store.
+// The backward kernels that read it are in flash_attention_bwd.cu.
 //
 // Two kernels, chosen by dtype and head dim:
 //
@@ -85,7 +89,7 @@ constexpr int cc_smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(F_THREADS, 4)
 flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
+                const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                 int S, int H, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -195,11 +199,12 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) orow[c0 + 4 * j] = from_float<T>(acc[j] * inv);
+    if (lse != nullptr && c0 == 0) lse[(int64_t)bh * S + qi] = m + logf(l);
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch_cc(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_cc(const void* q, const void* k, const void* v, void* o, float* lse,
                       int B, int S, int H, int K,
                       const int64_t* qs, const int64_t* ks, const int64_t* vs,
                       const int64_t* os, int causal, int window, float scale,
@@ -211,7 +216,7 @@ cudaError_t launch_cc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + F_BQ - 1) / F_BQ, B * H);
   flash_cc_kernel<T, HD><<<grid, F_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, H / K,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, H / K,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       os[0], os[1], os[2], causal, window, scale);
   return cudaGetLastError();
@@ -256,7 +261,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int S, int H, int G,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H, int G,
                 int64_t o_sb, int64_t o_ss, int64_t o_sh,
                 int causal, int window, float scale_log2) {
   using L = TcLayout<HD>;
@@ -420,6 +425,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + 8 * r;
     if (qi >= S) continue;
+    // log-sum-exp in natural units: m_run is in the log2 domain
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(int64_t)blockIdx.y * S + qi] = (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
     __nv_bfloat16* orow = o + b * o_sb + qi * o_ss + h * o_sh + cq;
 #pragma unroll
@@ -433,8 +441,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // args: the plans of q, k and v (PLAN values each), then o's element
 // strides (batch, seq, head).
 template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int H, int K, const int64_t* args, int causal, int window,
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int S, int H, int K, const int64_t* args, int causal, int window,
                       float scale, cudaStream_t stream) {
   using L = TcLayout<HD>;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -448,7 +456,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   const int64_t* os = args + 3 * PLAN;
   const dim3 grid((S + BM - 1) / BM, B * H);
   flash_tc_kernel<HD><<<grid, TC_THREADS, L::BYTES, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), S, H, H / K, os[0], os[1], os[2],
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, S, H, H / K, os[0], os[1], os[2],
       causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -457,17 +465,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 
 // The CUDA-core kernel. dtype: 0 = float32 (hd 16, 64, 128 or 256), 1 =
 // bfloat16 (hd 16). Strides are in elements, ordered (batch, seq, head); the
-// head dim must be contiguous. Returns a cudaError_t.
+// head dim must be contiguous. lse: null, or float32 [B, H, S] for each row's
+// log-sum-exp. Returns a cudaError_t.
 extern "C" int flash_attention_fwd_cc(int dtype, const void* q, const void* k, const void* v,
-                                      void* o, int B, int S, int H, int K, int hd,
+                                      void* o, void* lse, int B, int S, int H, int K, int hd,
                                       const int64_t* q_strides, const int64_t* k_strides,
                                       const int64_t* v_strides, const int64_t* o_strides,
                                       int causal, int window, float scale, void* stream) {
   if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_CC(T, HD)                                                                 \
-  return (int)launch_cc<T, HD>(q, k, v, o, B, S, H, K, q_strides, k_strides, v_strides, \
-                               o_strides, causal, window, scale, st)
+#define FLASH_CC(T, HD)                                                                  \
+  return (int)launch_cc<T, HD>(q, k, v, o, static_cast<float*>(lse), B, S, H, K, q_strides, \
+                               k_strides, v_strides, o_strides, causal, window, scale, st)
   if (dtype == 0 && hd == 16) FLASH_CC(float, 16);
   if (dtype == 0 && hd == 64) FLASH_CC(float, 64);
   if (dtype == 0 && hd == 128) FLASH_CC(float, 128);
@@ -479,20 +488,21 @@ extern "C" int flash_attention_fwd_cc(int dtype, const void* q, const void* k, c
 
 // The tensor-core kernel: bfloat16 inputs, hd 64, 128 or 256. args: 3 * 11
 // + 3 int64, the tensor maps of q, k and v (dims, byte strides, box; see
-// encode_map), then o's strides in elements (batch, seq, head). Returns a
-// cudaError_t.
+// encode_map), then o's strides in elements (batch, seq, head). lse as for
+// the CUDA-core kernel. Returns a cudaError_t.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        int B, int S, int H, int K, int hd,
+                                        void* lse, int B, int S, int H, int K, int hd,
                                         const int64_t* args, int causal, int window,
                                         float scale, void* stream) {
   if (K <= 0 || H % K != 0 || B * H > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return (int)launch_tc<64>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
+    return (int)launch_tc<64>(q, k, v, o, l, B, S, H, K, args, causal, window, scale, st);
   if (hd == 128)
-    return (int)launch_tc<128>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
+    return (int)launch_tc<128>(q, k, v, o, l, B, S, H, K, args, causal, window, scale, st);
   if (hd == 256)
-    return (int)launch_tc<256>(q, k, v, o, B, S, H, K, args, causal, window, scale, st);
+    return (int)launch_tc<256>(q, k, v, o, l, B, S, H, K, args, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,9 @@ tensor goes to the plain version (``ref.py``). A CUDA tensor launches
 
 Unlike the JAX wrapper it can return the final state ``(C, n, m)``, which the
 model's prefill caches. ``mlstm_chunk.launches`` counts calls that launched
-the kernels (one for the bf16 pair).
+the kernels (one for the bf16 pair). The kernels have no backward yet: a
+CUDA call that autograd would record raises ``NotImplementedError``; on the
+CPU the plain version carries autograd.
 """
 from __future__ import annotations
 
@@ -161,6 +163,10 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_log, f_log)):
+        raise NotImplementedError(
+            "mlstm_chunk has no backward kernel yet, so xLSTM does not train on the "
+            "card (ROADMAP.md, 2.H); the plain version trains on the CPU")
     h, state = _launch(q, k, v, i_log, f_log, chunk)
     return (h, state) if return_state else h
 

@@ -45,6 +45,23 @@
 // Each input element is read from HBM once and each output written once.
 // Splitting S reorders the float32 operations against a sequential loop:
 // the carry into a chunk is composed from products of a, not stepped.
+//
+// Backward (rglru_scan_bwd_kernel). Replaces nothing on the TPU: the JAX
+// package trains through XLA autodiff of lax.associative_scan
+// (src/repro/models/rglru.py:68); the port's models run this kernel when they
+// train, so its gradient is a kernel too. With dh the gradient of h and a_S
+// taken as 0, the gradient g_t of h_t follows the reverse recurrence
+//   g_t = a_{t+1} g_{t+1} + dh_t,   db_t = g_t,   da_t = g_t h_{t-1},
+//   dh0 = a_0 g_0                   (h_{-1} = h0)
+// which is the forward recurrence in reversed time u = S - 1 - t with
+// a'_u = a_{S-u} (0 at u = 0) and b'_u = dh_{S-1-u}. So the backward kernel
+// is the forward's split-S cluster design walked from the end: the same
+// grid, plan, quarter folds, exchange and carry-in over reversed chunks from
+// a zero carry; pass 2 writes db and da (with h_{t-1} read from the forward's
+// float32 h) and the block holding t = 0 writes dh0. A first version: float32
+// only, tiles staged by plain loads. Bound: a, h and dh read once, da and db
+// written once, ~5 x 4 B a (batch, step, channel): ~157 MB, 0.047 ms at
+// [1, 3072, 2560].
 
 #include <cooperative_groups.h>
 
@@ -205,6 +222,97 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// The backward: a, h (the forward's output), dh, da and db contiguous float32
+// [B, S, W]; h0 and dh0 [B, W]. Tiles hold a' and dh in reversed time.
+__global__ void __launch_bounds__(THREADS)
+rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ hs,
+                      const float* __restrict__ h0, const float* __restrict__ dh,
+                      float* __restrict__ da, float* __restrict__ db, float* __restrict__ dh0,
+                      int S, int W, int chunk, int rounds) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int w0 = blockIdx.y * TILE_W, bi = blockIdx.z;
+  const int tid = threadIdx.x, ch = tid % TILE_W, sub = tid / TILE_W;
+  const int w = w0 + ch, nw = min(TILE_W, W - w0);
+  const int quarter = (chunk + SUBS - 1) / SUBS;
+  const int nbuf = rounds > 1 ? 2 : 1;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ta = reinterpret_cast<float*>(smem);                         // [chunk][TILE_W]: a'
+  float* tg = ta + chunk * TILE_W;                                    // [chunk][TILE_W]: dh
+  float2* sub_maps = reinterpret_cast<float2*>(smem + tile_bytes<float>(chunk));
+  float2* maps = sub_maps + SUBS * TILE_W;                            // [nbuf][C][TILE_W]
+
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int64_t row0 = (int64_t)bi * S * W;                           // this batch row's [S, W]
+  float g = 0.f;                       // the carry into the round: g past the end is 0
+  for (int r = 0; r < rounds; ++r) {
+    const int u0 = (r * C + c) * chunk;
+    const int rows = max(0, min(chunk, S - u0));
+    for (int e = tid; e < rows * TILE_W; e += THREADS) {
+      const int u = e / TILE_W, x = e % TILE_W;
+      const int t = S - 1 - (u0 + u);
+      if (x < nw) {
+        ta[e] = t + 1 < S ? a[row0 + (int64_t)(t + 1) * W + w0 + x] : 0.f;
+        tg[e] = dh[row0 + (int64_t)t * W + w0 + x];
+      }
+    }
+    __syncthreads();
+
+    // pass 1: this thread's quarter folded into (A, G)
+    const int s0 = min(rows, sub * quarter), s1 = min(rows, s0 + quarter);
+    float A = 1.f, Gq = 0.f;
+#pragma unroll 4
+    for (int u = s0; u < s1; ++u) {
+      const float at = ta[u * TILE_W + ch];
+      A *= at;
+      Gq = fmaf(at, Gq, tg[u * TILE_W + ch]);
+    }
+    sub_maps[sub * TILE_W + ch] = make_float2(A, Gq);
+    __syncthreads();
+
+    float2* buf = maps + (r % nbuf) * C * TILE_W;
+    if (r == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (sub == 0) {
+      float2 m = make_float2(1.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < SUBS; ++q) {
+        const float2 x = sub_maps[q * TILE_W + ch];
+        m = make_float2(m.x * x.x, fmaf(x.x, m.y, x.y));
+      }
+      for (int p = 0; p < C; ++p) st_peer(buf + c * TILE_W + ch, p, m);
+    }
+    cluster.sync();
+
+    float gc = g;
+    for (int j = 0; j < C; ++j) {
+      if (j == c) gc = g;
+      const float2 m = buf[j * TILE_W + ch];
+      g = fmaf(m.x, g, m.y);
+    }
+    for (int q = 0; q < sub; ++q) {
+      const float2 m = sub_maps[q * TILE_W + ch];
+      gc = fmaf(m.x, gc, m.y);
+    }
+
+    // pass 2: g_t of each step of the quarter, then db_t, da_t (and dh0)
+    if (w < W) {
+#pragma unroll 4
+      for (int u = s0; u < s1; ++u) {
+        gc = fmaf(ta[u * TILE_W + ch], gc, tg[u * TILE_W + ch]);
+        const int t = S - 1 - (u0 + u);
+        const int64_t at = row0 + (int64_t)t * W + w;
+        const float hp = t > 0 ? hs[at - W] : h0[(int64_t)bi * W + w];
+        db[at] = gc;
+        da[at] = gc * hp;
+        if (t == 0) dh0[(int64_t)bi * W + w] = a[at] * gc;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* b, const float* h0, void* o, int B, int S, int W,
                    const int64_t* as, const int64_t* bs, const int64_t* os, int clusters,
@@ -255,6 +363,35 @@ extern "C" int rglru_scan_fwd(int dtype, const void* a, const void* b, const voi
     return (int)launch<__nv_bfloat16>(a, b, h, o, B, S, W, a_strides, b_strides, o_strides,
                                       clusters, chunk, rounds, bulk, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward: a, h (the forward's output), dh, da, db float32 [B, S, W]
+// and h0, dh0 [B, W], all contiguous; the plan as for rglru_scan_fwd.
+// Returns a cudaError_t.
+extern "C" int rglru_scan_bwd(const void* a, const void* h, const void* h0, const void* dh,
+                              void* da, void* db, void* dh0, int B, int S, int W, int clusters,
+                              int chunk, int rounds, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || W <= 0 || clusters < 1 || clusters > MAX_CLUSTER ||
+      chunk < 1 || chunk > MAX_CHUNK || rounds < 1 || (int64_t)clusters * chunk * rounds < S)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters, (W + TILE_W - 1) / TILE_W, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<float>(chunk, clusters, rounds);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, rglru_scan_bwd_kernel, static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(h0), static_cast<const float*>(dh), static_cast<float*>(da),
+      static_cast<float*>(db), static_cast<float*>(dh0), S, W, chunk, rounds);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int err) {

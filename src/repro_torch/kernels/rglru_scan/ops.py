@@ -7,7 +7,14 @@ tensor goes to the plain version (``ref.py``); a CUDA tensor launches
 ``csrc/rglru_scan.cu`` or raises. The kernel splits the sequence into chunks
 over the blocks of a thread-block cluster as ``scan_plan`` says, and stages
 its tiles by bulk copies where ``bulk_copies`` allows them.
-``rglru_scan.launches`` counts kernel launches.
+
+Training: where autograd records (grad mode on and an input that requires
+grad), ``rglru_scan`` runs through ``RGLRUScanFunction``, which keeps the
+forward's h and whose backward calls ``rglru_scan_backward``: on the card
+the backward kernel of ``csrc/rglru_scan.cu`` (the same split-S plan walked
+from the end, float32), on the CPU the explicit reverse recurrence of
+``ref.py``. ``rglru_scan.launches`` counts forward kernel launches and
+``rglru_scan_backward.launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_backward_reference,
+                                               rglru_scan_reference)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CLUSTER = 8      # chunks a round: blocks of a portable cluster
@@ -70,6 +78,8 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
         + [i64p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.rglru_scan_fwd.restype = ctypes.c_int
+    lib.rglru_scan_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.rglru_scan_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -87,10 +97,16 @@ def _check_inputs(a, b, h0):
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """a, b: [B, S, W]; h0: [B, W]. Returns h: [B, S, W] in b's dtype."""
     _check_inputs(a, b, h0)
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        return RGLRUScanFunction.apply(a, b, h0)
+    return _forward(a, b, h0)
+
+
+def _forward(a, b, h0):
     if a.device.type == "cpu":
         return rglru_scan_reference(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
     if a.dtype not in _DTYPES or a.dtype != b.dtype:
         raise ValueError("rglru_scan kernel takes a and b of one dtype, float32 "
                          f"or bfloat16, got {a.dtype}, {b.dtype}")
@@ -115,4 +131,53 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     return out
 
 
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                        dh: torch.Tensor):
+    """da, db [B, S, W] and dh0 [B, W], float32, of ``rglru_scan`` from a,
+    its output h, h0 and the gradient dh of h. The plain reverse recurrence
+    on the CPU; on the card the backward kernel (float32: a, h and dh are
+    widened first) or an error."""
+    _check_inputs(a, h, h0)
+    if dh.shape != h.shape:
+        raise ValueError(f"dh must be {tuple(h.shape)}, got {tuple(dh.shape)}")
+    if a.device.type == "cpu":
+        return rglru_scan_backward_reference(a, h, h0, dh)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    B, S, W = a.shape
+    if B > 65535:
+        raise ValueError(f"B = {B} exceeds the kernel's grid limit 65535")
+    a, h, h0, dh = (t.float().contiguous() for t in (a, h, h0, dh))
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_scan_bwd(*(t.data_ptr() for t in (a, h, h0, dh, da, db, dh0)),
+                                 B, S, W, *scan_plan(S), stream)
+    _build.check(lib, err, "rglru_scan_backward")
+    rglru_scan_backward.launches += 1
+    return da, db, dh0
+
+
+class RGLRUScanFunction(torch.autograd.Function):
+    """``rglru_scan`` with a gradient: the forward kernel (or plain version),
+    then the backward kernel (or plain reverse recurrence) from the saved h."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.dtypes = (a.dtype, b.dtype, h0.dtype)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_backward(a, h, h0, dh)
+        return tuple(g.to(dt) if need else None for g, dt, need in
+                     zip((da, db, dh0), ctx.dtypes, ctx.needs_input_grad))
+
+
 rglru_scan.launches = 0
+rglru_scan_backward.launches = 0

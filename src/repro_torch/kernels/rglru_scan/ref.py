@@ -1,9 +1,11 @@
-"""Plain PyTorch version of the RG-LRU scan kernel.
+"""Plain PyTorch versions of the RG-LRU scan kernels.
 
 The function's definition, step by step: ``h_t = a_t * h_{t-1} + b_t`` over
 the sequence axis from ``h0``, with a float32 carry, output in b's dtype.
 ``repro.kernels.rglru_scan.ref`` computes the same recurrence as an
-associative scan; the tests hold the two against each other.
+associative scan; the tests hold the two against each other. The backward
+is the reverse recurrence the backward kernel computes, written out (no
+autograd).
 """
 from __future__ import annotations
 
@@ -48,3 +50,21 @@ def rglru_scan_chunked(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
             h = af[:, t] * h + bf[:, t]
             out[:, t] = h
     return out.to(b.dtype)
+
+
+def rglru_scan_backward_reference(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                                  dh: torch.Tensor):
+    """Gradients of ``h = scan(a, b, h0)`` from the forward's h and the
+    gradient dh [B, S, W]: with a_S = 0, g_t = dh_t + a_{t+1} g_{t+1},
+    db_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0), dh0 = a_0 g_0. Returns
+    float32 (da, db, dh0)."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    S = a.shape[1]
+    da = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    g = torch.zeros_like(h0, dtype=torch.float32)
+    for t in reversed(range(S)):
+        g = dhf[:, t] + (af[:, t + 1] * g if t + 1 < S else 0.0)
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else h0.float())
+    return da, db, af[:, 0] * g

@@ -63,6 +63,14 @@ class Attention(nn.Module):
         return (apply_rope(q, positions, self.theta),
                 apply_rope(k, positions, self.theta), v)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode (``attention_forward``): causal (windowed for a local
+        layer) attention over the whole sequence, x [B,S,D] -> [B,S,D]."""
+        B, S, _ = x.shape
+        q, k, v = self._project_qkv(x, torch.arange(S, device=x.device))
+        out = flash_attention(q, k, v, causal=True, window=self.window)
+        return self.wo(out.reshape(B, S, self.cfg.q_dim))
+
     def prefill(self, x: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence attention and the cache filled for decoding.
 

@@ -4,19 +4,23 @@ Ported block kinds: dense ``attn``/``local``, RecurrentGemma ``rglru`` and
 xLSTM ``mlstm``/``slstm``; also tied embeddings (the table as the head, the
 input scaled by √d) and the logit softcap. Layers are an ``nn.ModuleList``
 in depth order, where the JAX package scans over stacked pattern repeats;
-``repro_torch.convert`` maps one layout onto the other. The model serves
-(prefill and decode), so parameters carry no gradient.
+``repro_torch.convert`` maps one layout onto the other. Parameters carry no
+gradient, so serving records no graph; a training state
+(``repro_torch.training.train_step.init_state``) turns gradients on for its
+own model.
 
+  forward      train mode: full sequence -> float32 logits of every position
   prefill      full prompt -> logits of the last position, filled caches
   decode_step  one token against the caches, which it updates in place
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -80,6 +84,10 @@ class Block(nn.Module):
             self.mlp_norm.reset_parameters()
             self.mlp.reset_parameters(generator)
 
+    def forward(self, x):
+        """Train mode (``apply_block(mode="train")``): x [B,S,D] -> [B,S,D]."""
+        return self._finish(x, self.mixer(self.pre_norm(x)))
+
     def _finish(self, x, y):
         x = x + y
         if self.mlp is None:
@@ -138,6 +146,46 @@ class CausalLM(nn.Module):
         x = self.final_norm(x)
         logits = self.embed.unembed(x) if self.head is None else self.head(x)
         return softcap(logits.float(), self.cfg.logit_softcap)
+
+    def _repeat(self, x, r: int):
+        P = len(self.cfg.block_pattern)
+        for block in self.layers[r * P:(r + 1) * P]:
+            x = block(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor, *, remat: str = "none"):
+        """Train-mode forward (``repro.models.model.forward``): tokens [B, S]
+        -> (float32 logits [B, S, V], aux). ``remat`` other than ``"none"``
+        runs each pattern repetition, and each tail layer, under
+        non-reentrant activation checkpointing (``jax.checkpoint`` of the
+        scan body): its activations are recomputed in the backward pass, so
+        its kernels launch twice a step. aux is empty (no MoE in the port)."""
+        x = self._embed_in(tokens)
+        P = len(self.cfg.block_pattern)
+        reps = self.cfg.num_layers // P
+        ckpt = remat != "none"
+        for r in range(reps):
+            x = (checkpoint(self._repeat, x, r, use_reentrant=False) if ckpt
+                 else self._repeat(x, r))
+        for block in self.layers[reps * P:]:
+            x = checkpoint(block, x, use_reentrant=False) if ckpt else block(x)
+        return self._head_out(x), {}
+
+
+def jax_leaf(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
+    """The JAX pytree leaf that the port's parameter ``name`` lives in, as a
+    dotted path, and its index along that leaf's leading repeat axis: a
+    pattern repetition's layer ``layers.{r*P + j}.<leaf>`` is row r of
+    ``repeats.b{j}.<leaf>``, a tail layer is ``tail.t{j}.<leaf>`` (no repeat
+    axis), anything else keeps its name."""
+    if not name.startswith("layers."):
+        return name, None
+    _, i, leaf = name.split(".", 2)
+    i, P = int(i), len(cfg.block_pattern)
+    reps = cfg.num_layers // P
+    if i < reps * P:
+        return f"repeats.b{i % P}.{leaf}", i // P
+    return f"tail.t{i - reps * P}.{leaf}", None
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

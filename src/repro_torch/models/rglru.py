@@ -12,8 +12,9 @@ wrapped in Griffin's gated branch: ``w_out(gelu(w_gate_in x) * h)`` with
 pytree's leaf names, so ``repro_torch.convert`` copies them by name; ``lam``
 is float32 whatever ``param_dtype`` is, as in JAX.
 
-The prefill recurrence goes through the port's ``rglru_scan`` (on the card
-the CUDA kernel) with float32 ``a`` and ``b``. The decode step is plain
+The train-mode and prefill recurrences go through the port's ``rglru_scan``
+(on the card the CUDA kernel, with its backward kernel when training) with
+float32 ``a`` and ``b``. The decode step is plain
 PyTorch, as the JAX package has no kernel there either, and it updates the
 cache dict in place: ``h`` and ``conv`` are replaced.
 """
@@ -79,6 +80,15 @@ class RGLRUBlock(nn.Module):
         a = torch.exp(log_a)
         multiplier = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
         return a, multiplier * i * u.float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode (``rglru_block_forward``): x [B,S,D] -> [B,S,D], the
+        scan from a zero state."""
+        gate = self.act(self.w_gate_in(x))
+        u = causal_conv(self.w_rnn_in(x), self.rg_conv_w, self.rg_conv_b)
+        a, b = self._gates(u)
+        h = rglru_scan(a, b, torch.zeros_like(b[:, 0]))        # float32
+        return self.w_out(gate * h.to(x.dtype))
 
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         """x [B,S,D] -> (y [B,S,D], cache) from a zero state

@@ -126,6 +126,12 @@ class MLSTMBlock(nn.Module):
         h = (h * F.silu(g).reshape(h.shape)).reshape(g.shape)
         return self.w_down(h)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode (``mlstm_block_forward``): x [B,S,D] -> [B,S,D]. On the
+        card ``mlstm_chunk`` raises under autograd (no backward kernel yet)."""
+        _, g, q, k, v, i_log, f_log = self._gate_and_qkvif(x)
+        return self._out(mlstm_chunk(q, k, v, i_log, f_log, chunk=PREFILL_CHUNK), g)
+
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         """x [B,S,D] -> (y [B,S,D], cache). The cache holds the final state
         and the last conv_width-1 up-projections (zeros before the start);
@@ -238,6 +244,10 @@ class SLSTMBlock(nn.Module):
         """h [B,S,H,dh] float32 -> headnorm, then the FFN."""
         h = headnorm(h, self.out_scale).flatten(-2).to(dtype)
         return self.w_ff_down(self.act(self.w_ff_up(h)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode (``slstm_block_forward``): x [B,S,D] -> [B,S,D]."""
+        return self.prefill(x)[0]
 
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         """x [B,S,D]: the recurrence step by step over S from a zero state

@@ -898,3 +898,120 @@ def test_campaign_workers_are_spawned_and_stay_on_the_card(cuda, capfd):
     assert "process pool unavailable" not in capfd.readouterr().err
     assert pooled["reductions"] == serial["reductions"]
     assert pooled["throughput"]["queue_impls"] == {"cuda_batched": 16}
+
+
+# ---------------------------------------------------------------- training
+
+def _assert_grads_close(got, ref, names, dtype, scale):
+    """Each gradient on its own: every element within rtol * |ref| +
+    atol * rms(ref), and ||got - ref|| <= rel_tol * ||ref||. bf16 (2^-7,
+    1e-2, 1e-2): one rounding of the same float32 value lands at most one
+    ulp away, plus float32 sums in another order before it; float32 (1e-5,
+    1e-4, 1e-4): sums over up to S keys or steps in another order. All of
+    them also within the one bound the tests held before, ``scale`` x
+    max(1, their largest value)."""
+    rtol, atol, rel_tol = (2.0 ** -7, 1e-2, 1e-2) if dtype == torch.bfloat16 else (
+        1e-5, 1e-4, 1e-4)
+    bound = scale * max(1.0, max(r.float().abs().max().item() for r in ref))
+    for g, r, name in zip(got, ref, names):
+        assert g.dtype == r.dtype and g.shape == r.shape and torch.isfinite(g).all(), name
+        g, r = g.float(), r.float()
+        d = (g - r).abs()
+        assert d.max().item() < bound, name
+        rms = r.square().mean().sqrt()
+        worst = (d - rtol * r.abs() - atol * rms).max().item()
+        assert worst <= 0, (name, worst, rms.item())
+        assert d.norm().item() <= rel_tol * r.norm().item(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,win,causal", [
+    (1, 3072, 10, 1, 256, 2048, True),      # recurrentgemma-2b's training shape
+    (2, 512, 28, 4, 128, 0, True),          # qwen2-7b's heads
+    (2, 300, 8, 2, 64, 100, True), (1, 130, 4, 2, 64, 0, False),
+    (2, 64, 4, 1, 16, 16, True),            # the launcher's reduced models
+    (3, 77, 4, 4, 16, 0, True), (1, 200, 6, 2, 128, 0, False),
+])
+def test_flash_backward_kernel_matches_plain(cuda, B, S, H, K, hd, win, causal, dtype):
+    """dq, dk, dv of the backward kernels against the plain formulas on the
+    same q, k, v, o, dO and log-sum-exp; one launch a call."""
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn(cuda, B, S, H, hd, dtype=dtype)
+    k = _randn(cuda, B, S, K, hd, dtype=dtype)
+    v = _randn(cuda, B, S, K, hd, dtype=dtype)
+    do = _randn(cuda, B, S, H, hd, dtype=dtype)
+    o, lse = ops.flash_attention_reference(q, k, v, causal=causal, window=win,
+                                           return_lse=True)
+    before = ops.flash_attention_backward.launches
+    got = ops.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=win)
+    ref = ops.flash_attention_backward_reference(q, k, v, o, do, lse, causal=causal,
+                                                 window=win)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_backward.launches == before + 1
+    assert all(g.dtype == dtype for g in got)
+    _assert_grads_close(got, ref, ("dq", "dk", "dv"), dtype,
+                        {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.float32, 256),
+                                      (torch.bfloat16, 16), (torch.bfloat16, 64),
+                                      (torch.bfloat16, 256)])
+def test_flash_forward_lse_matches_plain_and_serving_is_unchanged(cuda, dtype, hd):
+    """Both forward kernels' log-sum-exp (float32 1e-4, bf16 1e-3: the same
+    products summed in another order); the output with the LSE written is
+    bit-equal to the serving call's, which passes a null pointer."""
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn(cuda, 2, 300, 8, hd, dtype=dtype)
+    k = _randn(cuda, 2, 300, 2, hd, dtype=dtype)
+    v = _randn(cuda, 2, 300, 2, hd, dtype=dtype)
+    serving = ops.flash_attention(q, k, v, causal=True, window=128)
+    out, lse = ops._launch(q, k, v, causal=True, window=128, lse=True)
+    _, ref = ops.flash_attention_reference(q, k, v, causal=True, window=128, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, serving)
+    assert lse.shape == (2, 8, 300) and lse.dtype == torch.float32
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-3}[dtype]
+    assert (lse - ref).abs().max().item() < tol
+
+
+def test_flash_autograd_on_the_card_goes_through_the_kernels(cuda):
+    from repro_torch.kernels.flash_attention import ops
+    ts = [_randn(cuda, 1, 256, 4, 64, dtype=torch.bfloat16).requires_grad_(True)
+          for _ in range(3)]
+    f0, b0 = ops.flash_attention.launches, ops.flash_attention_backward.launches
+    out = ops.flash_attention(*ts, causal=True, window=64)
+    grads = torch.autograd.grad(out.float().square().sum(), ts)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == f0 + 1
+    assert ops.flash_attention_backward.launches == b0 + 1
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (1, 3072, 2560), (4, 512, 2560),                    # recurrentgemma-2b training
+    SCAN_DEFAULTS, (2, 128, 64),                        # the launcher's reduced model
+    (2, 10, 256), (3, 1, 128), (2, 1000, 192), (1, 5000, 64), (2, 300, 33),
+])
+def test_rglru_backward_kernel_matches_plain(cuda, B, S, W):
+    """da, db, dh0 of the backward kernel against the plain reverse
+    recurrence, each under the float32 rule of ``_assert_grads_close`` (the
+    carry composed by chunks)."""
+    from repro_torch.kernels.rglru_scan import ops
+    a, b, h0 = _rglru_inputs(cuda, B, S, W, torch.float32)
+    h = ops.rglru_scan(a, b, h0)
+    dh = torch.randn(B, S, W, generator=cuda, device="cuda")
+    before = ops.rglru_scan_backward.launches
+    got = ops.rglru_scan_backward(a, h, h0, dh)
+    ref = ops.rglru_scan_backward_reference(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan_backward.launches == before + 1
+    _assert_grads_close(got, ref, ("da", "db", "dh0"), torch.float32, 2e-5)
+
+
+def test_mlstm_chunk_under_autograd_raises_on_the_card(cuda):
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    q, k, v, i_log, f_log = _mlstm_inputs(cuda, 1, 64, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="2.H"):
+        mlstm_chunk(q.requires_grad_(True), k, v, i_log, f_log)
+    with torch.no_grad():
+        assert torch.isfinite(mlstm_chunk(q, k, v, i_log, f_log)).all()

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and it
 never falls back to the CPU when the card is asked for and missing. With both
-blocked it serves, runs the campaign, gates its own traced ``mix_tiny``
-against the goldens with its own trace CLI, and runs the paper experiment."""
+blocked it serves, trains (``python -m repro_torch.launch.train --reduced
+--device cpu --steps 2``), runs the campaign, gates its own traced
+``mix_tiny`` against the goldens with its own trace CLI, and runs the paper
+experiment."""
 import os
 import re
 import subprocess
@@ -32,6 +34,10 @@ from repro_torch.launch import serve
 assert serve.main(['--device', 'cpu', '--requests', '2', '--max-batch', '2',
                    '--prompt-len', '4', '--max-new', '2']) == 0
 import os, tempfile
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as tmp:
+    assert train.main(['--reduced', '--device', 'cpu', '--steps', '2',
+                       '--ckpt-dir', os.path.join(tmp, 'ck')]) == 0
 from repro_torch.workloads import campaign
 with tempfile.TemporaryDirectory() as tmp:
     out = os.path.join(tmp, 'campaign.json')
@@ -62,6 +68,10 @@ def _port_sources():
 def test_port_sources_import_no_jax_and_no_repro():
     files = _port_sources()
     assert len(files) > 10
+    scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"training/optimizer.py", "training/train_step.py", "data/pipeline.py",
+            "checkpoint/checkpointer.py", "runtime/elastic.py",
+            "launch/train.py"} <= scanned
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not offenders, offenders
@@ -82,6 +92,8 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "served 2 requests" in proc.stdout
+    assert "arch=deepseek-7b devices=1 start_step=0" in proc.stdout
+    assert "step 2: loss=" in proc.stdout and "done; checkpoint at" in proc.stdout
     assert "campaign grid=mix_tiny cells=1" in proc.stdout
     assert "regress: pass — 7 cell(s) within thresholds" in proc.stdout
     assert "ok: replayed" in proc.stdout
@@ -93,8 +105,9 @@ def test_cuda_requested_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.runtime.device_pool import DevicePool
+    from repro_torch.training.train_step import init_state
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
@@ -103,5 +116,10 @@ def test_cuda_requested_without_card_raises():
         DevicePool()
     with pytest.raises(RuntimeError):
         serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError):
+        train.main(["--reduced", "--steps", "1"])
+    from repro_torch.configs import get_config, reduced_config
+    with pytest.raises(RuntimeError):
+        init_state(reduced_config(get_config("recurrentgemma-2b")))
     assert resolve_device("cpu") == torch.device("cpu")
     assert DevicePool(devices=["cpu"]).devices == [torch.device("cpu")]
