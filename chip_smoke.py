@@ -11,8 +11,9 @@ Phases, each of which fails the run on any error:
    instance its registers and spills
    (``-Xptxas -v``; a queue register instance may have no stack frame)
    and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
-   that spills, or a tensor-core instance -- bf16 flash, the mLSTM state and
-   output passes -- that lacks either, fails the run);
+   that spills, or a tensor-core instance -- bf16 flash forward and
+   backward, the mLSTM state and output passes -- that lacks either, fails
+   the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
    (attention at head_dim 16, 64, 128 and 256, bf16 3e-2, float32 2e-5,
@@ -80,11 +81,14 @@ Phases, each of which fails the run on any error:
    each chunk of the cells each of its four campaigns executes); and the
    paper's SC-vs-DC sweep, ``repro_torch.examples.consolidation_sim --ws
    timeseries`` (host work; every claim must hold);
-8. training: the two backward kernels (flash attention's dQ and dK/dV
-   kernels, the RG-LRU scan's reverse recurrence) against their plain
-   formulas on the card (flash at recurrentgemma-2b's [1, 3072, 10, 1,
-   256] window 2048 and qwen2-7b's heads, bf16 and float32 at head dims
-   16, 64, 128 and 256, with the forward kernels' log-sum-exp; the scan at
+8. training: the two backward kernels (flash attention's: the tensor-core
+   dQ, dK/dV and partial-sum kernels for bf16 at head dims 64-256, the
+   CUDA-core dQ and dK/dV kernels otherwise; the RG-LRU scan's reverse
+   recurrence) against their plain formulas on the card (flash at
+   recurrentgemma-2b's [1, 3072, 10, 1, 256] window 2048 and qwen2-7b's
+   heads, bf16 and float32 at head dims 16, 64, 128 and 256, bf16 also at
+   each tensor-core instance's edges, with the forward kernels'
+   log-sum-exp, and a second call bit-equal to the first; the scan at
    [1, 3072, 2560], [4, 512, 2560] and the launchers' shapes) and timed
    beside their bounds (flash also beside SDPA's backward with the same
    mask); ``train_reduced``: three steps of the train launcher's reduced
@@ -205,7 +209,7 @@ def max_err(torch, out, ref) -> float:
 # wgmma (HGMMA) and TMA (UTMALDG)); every instance must be free of spills.
 BUILD_REPORTS = {
     "flash_attention": ("flash_build", r"flash_(tc|cc)_kernel", r"flash_tc"),
-    "flash_attention_bwd": ("flash_bwd_build", r"flash_bwd_\w+_kernel", None),
+    "flash_attention_bwd": ("flash_bwd_build", r"flash_bwd_\w+_kernel", r"flash_bwd_tc"),
     "decode_attention": ("decode_build", r"decode_split_kernel", None),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
     "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", None),
@@ -1613,11 +1617,25 @@ def _flash_bwd_inputs(torch, gen, dev, B, S, H, K, hd, dtype):
     return q, k, v, do
 
 
+# (B, S, H, K, hd, window, causal) of bf16 cases at the tensor-core
+# backward's edges, for each of its head dims: S not a multiple of 64, S
+# below 64, non-causal (also with a window), window edges (2, 64, 65, 100),
+# and groups G = H / K of 1, 4 and 7.
+FLASH_BWD_TC_EDGES = [
+    (1, 200, 7, 1, 64, 0, True), (2, 40, 4, 1, 64, 0, True), (1, 130, 4, 2, 64, 0, False),
+    (2, 300, 8, 2, 64, 100, True), (1, 200, 4, 2, 64, 50, False),
+    (1, 333, 4, 4, 128, 0, True), (2, 50, 7, 1, 128, 20, True), (1, 260, 8, 2, 128, 64, True),
+    (1, 200, 4, 1, 128, 0, False),
+    (1, 300, 10, 1, 256, 65, True), (1, 63, 7, 1, 256, 0, False),
+    (2, 190, 4, 4, 256, 128, True), (1, 129, 4, 1, 256, 2, True),
+]
+
+
 def check_flash_backward(torch, gen, dev):
     """The backward kernels' dq, dk, dv against the plain formulas on the
     card, each under ``grad_tol``, from the forward kernel's output and
     log-sum-exp (itself held against the plain one: float32 1e-4, bf16
-    1e-3)."""
+    1e-3); a second call must give the same bits (no atomics)."""
     from repro_torch.kernels.flash_attention import ops
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (B, S, H, K, hd, window, causal, dtype)
@@ -1626,8 +1644,8 @@ def check_flash_backward(torch, gen, dev):
         (8, 128, 4, 1, 16, 16, True, f32),         # reduced recurrentgemma-2b, launcher
         (8, 128, 4, 2, 16, 0, True, f32),          # reduced qwen2-7b, launcher
         (2, 300, 8, 2, 16, 100, True, bf16), (2, 300, 8, 2, 64, 100, True, f32),
-        (2, 300, 8, 2, 64, 100, True, bf16), (1, 130, 4, 2, 64, 0, False, bf16),
         (1, 300, 10, 1, 256, 65, True, f32), (2, 200, 6, 2, 128, 0, False, f32),
+        *((*c, bf16) for c in FLASH_BWD_TC_EDGES),
     ]
     errs = {}
     for B, S, H, K, hd, win, causal, dtype in cases:
@@ -1636,22 +1654,25 @@ def check_flash_backward(torch, gen, dev):
         _, lse_ref = ops.flash_attention_reference(q, k, v, causal=causal, window=win,
                                                    return_lse=True)
         got = ops.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=win)
+        again = ops.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=win)
         ref = ops.flash_attention_backward_reference(q, k, v, o, do, lse, causal=causal,
                                                      window=win)
         torch.cuda.synchronize()
         err, report, ok = grad_errors(torch, got, ref, ("dq", "dk", "dv"), dtype,
                                       {f32: 1e-4, bf16: 2e-2}[dtype])
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
         lse_err = max_err(torch, lse, lse_ref)
         lse_tol = {f32: 1e-4, bf16: 1e-3}[dtype]
         emit({"phase": "check", "kernel": "flash_attention_backward",
               "shape": [B, S, H, K, hd], "window": win, "causal": causal,
-              "dtype": str(dtype), "max_abs_err": err, **report,
+              "dtype": str(dtype), "instance": ops.backward_instance(dtype, hd),
+              "max_abs_err": err, **report, "second_call_bit_equal": same_bits,
               "lse_max_abs_err": lse_err, "lse_tol": lse_tol})
-        if not (ok and lse_err < lse_tol and all(g.dtype == dtype for g in got)):
-            raise AssertionError(f"flash_attention backward disagrees: {report} "
-                                 f"or lse {lse_err} >= {lse_tol}")
+        if not (ok and same_bits and lse_err < lse_tol and all(g.dtype == dtype for g in got)):
+            raise AssertionError(f"flash_attention backward disagrees: {report}, "
+                                 f"bit-equal {same_bits}, or lse {lse_err} >= {lse_tol}")
         errs.setdefault((B, S, H, K, hd), err)
-        del q, k, v, do, o, lse, lse_ref, got, ref
+        del q, k, v, do, o, lse, lse_ref, got, again, ref
     return errs
 
 
@@ -1731,7 +1752,7 @@ def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
             "library_fwd_ms": turns["library_fwd"]["median"],
             "library_note": "SDPA (boolean mask, enable_gqa) forward+backward minus its "
                             "forward", "sdpa_vs_forward_kernel_max_abs_err": sdpa_err,
-            "blocks": {"dq": -(-S // 32) * B * H, "dkdv": -(-S // 16) * B * K}}
+            "blocks": ops.backward_grids(torch.bfloat16, B, S, H, K, hd)}
 
 
 def measure_rglru_backward(torch, gen, dev, peak, B, S, W):

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, mlstm_chunk.cu, rglru_scan.cu): mbarriers, 4-D TMA
-// loads and the tensor-map encoder, 1-D bulk copies, wgmma fences and
-// shared-memory descriptors, and the m64nNk16 bf16 products the kernels
-// use. Include as "common/hopper.cuh"; kernels/_build.py passes -I for the
-// kernels directory and hashes every header with the sources, so an edited
-// header rebuilds every kernel.
+// (flash_attention.cu, flash_attention_bwd.cu, mlstm_chunk.cu, rglru_scan.cu):
+// mbarriers, named barriers, 4-D TMA loads and the tensor-map encoder, 1-D
+// bulk copies, wgmma fences and shared-memory descriptors, and the m64nNk16
+// bf16 products the kernels use. Include as "common/hopper.cuh";
+// kernels/_build.py passes -I for the kernels directory and hashes every
+// header with the sources, so an edited header rebuilds every kernel.
 
 #pragma once
 
@@ -67,6 +67,27 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: sync waits for the count, arrive adds to it and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+// named_bar_sync that also ORs `x` over the `count` threads: true in each
+// of them where any one passed true.
+__device__ __forceinline__ bool named_bar_any(int id, int count, bool x) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred p, %2, %3, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any) : "r"((uint32_t)x), "r"(id), "r"(count) : "memory");
+  return any != 0;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -199,6 +220,16 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], N = 64, 128 or 256: A from registers,
+// B MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "N is 64, 128 or 256");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory. TRANS_A /

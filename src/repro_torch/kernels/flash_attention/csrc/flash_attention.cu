@@ -235,15 +235,6 @@ constexpr int TC_THREADS = WG + 32;  // the consumer warpgroup and a producer wa
 constexpr int PLAN = 11;           // int64 values of one tensor-map plan
 static_assert(PLAN == TMA_PLAN_VALUES, "a plan is kernels/_tma.py's TensorMapPlan");
 
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
-  static_assert(N == 64 || N == 128 || N == 256, "head dim 64, 128 or 256");
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
-
 template <int HD>
 struct TcLayout {                   // byte offsets from a 1024-aligned base
   static constexpr int Q_BYTES = BM * HD * 2;        // the 64-row Q tile
@@ -408,7 +399,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
-      wgmma_pv<HD>(acc, pa[j], smem_desc(v_base + j * 16 * 128, BK * 128 / 16, 64));
+      wgmma_rs<HD>(acc, pa[j], smem_desc(v_base + j * 16 * 128, BK * 128 / 16, 64));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<HD / 2>(acc);

@@ -21,14 +21,26 @@ grad), ``flash_attention`` runs through ``FlashAttentionFunction``. Its
 forward launches the same kernels with the per-row log-sum-exp written
 beside the output (``[B, H, S]`` float32; serving passes a null pointer and
 nothing else changes), and its backward calls ``flash_attention_backward``:
-on the card ``csrc/flash_attention_bwd.cu`` (a dQ kernel, then a dK/dV
-kernel that sums each group's query heads in order: no atomics), on the CPU
-the explicit formulas of ``ref.py``, so the CPU tests check what the kernel
-computes.
+on the card ``csrc/flash_attention_bwd.cu``, on the CPU the explicit
+formulas of ``ref.py``, so the CPU tests check what the kernels compute.
+``backward_instance`` names the family a CUDA call takes, as the forward
+chooses:
+
+* bfloat16 at head_dim 64, 128 or 256: the tensor-core kernels (``wgmma``,
+  every tile fed by TMA). A dQ kernel (one 64-row query tile a block), a
+  dK/dV kernel (one 64-key tile of one query head a block, its float32
+  partials in scratch ``[2, B, S, H, hd]``), then a kernel that sums each
+  group's partials in head order. Their four tensor maps (q, k, v, dO;
+  64-row boxes) are planned by ``backward_kernel_args``, which raises
+  ``ValueError`` on a layout TMA cannot take before anything launches.
+* float32, and bfloat16 at head_dim 16: the CUDA-core kernels (a dQ kernel,
+  then a dK/dV kernel that sums each group's query heads in order).
+
+No atomics in either: two calls give the same bits.
 
 ``flash_attention.launches`` counts forward kernel launches and
-``flash_attention_backward.launches`` backward calls that launched the
-kernel pair.
+``flash_attention_backward.launches`` backward calls that launched their
+kernels (one a call, however many kernels it launches).
 """
 from __future__ import annotations
 
@@ -49,6 +61,14 @@ TC_HEAD_DIMS = (64, 128, 256)   # bf16 head dims of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 64         # query rows a block: wgmma's M (BM in the source)
 BLOCK_K = 64         # keys a K/V tile (BK in the source)
+BWD_BLOCK = 64       # rows a backward block owns and a streamed tile holds (TC_BM, TC_BN)
+BWD_CC_ROWS = (32, 16)   # CUDA-core backward: query rows a dQ block, keys a dK/dV block
+BWD_REDUCE_THREADS = 256  # threads a block of the partials' sum, 4 columns each
+# A tensor-core backward tile in which some P >= SPLIT_P also multiplies the
+# lo part (x - bf16(x)) of its bf16 operands P and dS: rows that see few keys
+# have large terms, which one bf16 rounding would leave outside the gradient
+# tolerance (csrc/flash_attention_bwd.cu; split_sweep.py measures the trade)
+SPLIT_P = 1.0 / 64
 
 
 @functools.lru_cache(maxsize=256)
@@ -85,11 +105,40 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
-    lib.flash_attention_bwd.argtypes = (
+    lib.flash_attention_bwd_cc.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_bf16.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.flash_attention_bwd_cc, lib.flash_attention_bwd_bf16):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def backward_instance(dtype: torch.dtype, hd: int) -> str:
+    """The backward family a CUDA call launches: ``"tc"`` (the tensor-core
+    kernels) for bfloat16 at ``TC_HEAD_DIMS``, else ``"cc"`` (CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cc"
+
+
+def backward_kernel_args(q, k, v, do) -> ctypes.Array:
+    """The tensor-core backward's ``plans``: the tensor maps of q, k, v and
+    dO, each with ``BWD_BLOCK``-row boxes. Cached per layout; each call
+    checks the four base addresses (``ValueError`` where TMA cannot take a
+    layout)."""
+    return _packed(tuple(tensor_map_plan(t, BWD_BLOCK) for t in (q, k, v, do)), ())
+
+
+def backward_grids(dtype: torch.dtype, B: int, S: int, H: int, K: int,
+                   hd: int) -> dict:
+    """Kernel name -> blocks of its grid, for one backward call."""
+    if backward_instance(dtype, hd) == "tc":
+        tiles = -(-S // BWD_BLOCK) * B * H
+        return {"flash_bwd_tc_dq": tiles, "flash_bwd_tc_dkdv": tiles,
+                "flash_bwd_reduce": -(-(B * S * K * hd // 4) // BWD_REDUCE_THREADS)}
+    dq_rows, kv_rows = BWD_CC_ROWS
+    return {"flash_bwd_dq": -(-S // dq_rows) * B * H, "flash_bwd_dkdv": -(-S // kv_rows) * B * K}
 
 
 def _check_inputs(q, k, v):
@@ -176,20 +225,42 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
                                                   causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    return _launch_backward(q, k, v, o, do, lse, causal=causal, window=window)
+
+
+def _launch_backward(q, k, v, o, do, lse, *, causal: bool, window: int,
+                     split_p: float = SPLIT_P):
+    """Launch the backward kernels for CUDA tensors that passed
+    ``flash_attention_backward``'s checks; ``split_p`` is the tensor-core
+    kernels' threshold (``split_sweep.py`` passes others)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     _check_kernel_inputs(q, "flash_attention backward")
     # the kernels take contiguous [B, S, heads, hd] rows (a copy only where
     # autograd hands over another layout)
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    shape = (B, S, H, K, hd)
+    flags = (int(causal), int(window), 1.0 / math.sqrt(hd))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if backward_instance(q.dtype, hd) == "tc":
+        plans = backward_kernel_args(q, k, v, do)
+        if o.data_ptr() % 16:
+            raise ValueError(f"the backward reads o in 16-byte chunks; its base "
+                             f"{o.data_ptr():#x} is not 16-byte aligned")
+        rows = torch.empty((2, B * H, -(-S // BWD_BLOCK) * BWD_BLOCK), **f32)
+        part = torch.empty((2, B, S, H, hd), **f32)
+        tensors = (q, k, v, o, do, lse, dq, dk, dv, rows, part)
+        entry, args = "flash_attention_bwd_bf16", (
+            *(t.data_ptr() for t in tensors), *shape, plans, *flags, float(split_p))
+    else:
+        delta = torch.empty((B, H, S), **f32)
+        tensors = (q, k, v, o, do, lse, dq, dk, dv, delta)
+        entry, args = "flash_attention_bwd_cc", (
+            _DTYPES[q.dtype], *(t.data_ptr() for t in tensors), *shape, *flags)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd(
-            _DTYPES[q.dtype], *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
-            B, S, H, K, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_backward")
     flash_attention_backward.launches += 1
     return dq, dk, dv

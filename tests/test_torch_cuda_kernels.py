@@ -924,24 +924,45 @@ def _assert_grads_close(got, ref, names, dtype, scale):
         assert d.norm().item() <= rel_tol * r.norm().item(), name
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,hd,win,causal", [
+FLASH_BWD_SHAPES = [  # (B, S, H, K, hd, window, causal), float32 and bf16
     (1, 3072, 10, 1, 256, 2048, True),      # recurrentgemma-2b's training shape
     (2, 512, 28, 4, 128, 0, True),          # qwen2-7b's heads
     (2, 300, 8, 2, 64, 100, True), (1, 130, 4, 2, 64, 0, False),
     (2, 64, 4, 1, 16, 16, True),            # the launcher's reduced models
     (3, 77, 4, 4, 16, 0, True), (1, 200, 6, 2, 128, 0, False),
+]
+# bf16 at the tensor-core backward's edges, at each of its head dims: S not
+# a multiple of 64, S below 64, non-causal (also with a window), window
+# edges (2, 64, 65, 100) and groups G = H / K of 1, 4 and 7
+FLASH_BWD_TC_EDGES = [
+    (1, 200, 7, 1, 64, 0, True), (2, 40, 4, 1, 64, 0, True), (1, 200, 4, 2, 64, 50, False),
+    (1, 333, 4, 4, 128, 0, True), (2, 50, 7, 1, 128, 20, True), (1, 260, 8, 2, 128, 64, True),
+    (1, 200, 4, 1, 128, 0, False),
+    (1, 300, 10, 1, 256, 65, True), (1, 63, 7, 1, 256, 0, False),
+    (2, 190, 4, 4, 256, 128, True), (1, 129, 4, 1, 256, 2, True),
+]
+
+
+def _flash_bwd_inputs(gen, B, S, H, K, hd, win, causal, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn(gen, B, S, H, hd, dtype=dtype)
+    k = _randn(gen, B, S, K, hd, dtype=dtype)
+    v = _randn(gen, B, S, K, hd, dtype=dtype)
+    do = _randn(gen, B, S, H, hd, dtype=dtype)
+    o, lse = ops.flash_attention_reference(q, k, v, causal=causal, window=win,
+                                           return_lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,win,causal,dtype", [
+    *((*c, d) for c in FLASH_BWD_SHAPES for d in (torch.float32, torch.bfloat16)),
+    *((*c, torch.bfloat16) for c in FLASH_BWD_TC_EDGES),
 ])
 def test_flash_backward_kernel_matches_plain(cuda, B, S, H, K, hd, win, causal, dtype):
     """dq, dk, dv of the backward kernels against the plain formulas on the
     same q, k, v, o, dO and log-sum-exp; one launch a call."""
     from repro_torch.kernels.flash_attention import ops
-    q = _randn(cuda, B, S, H, hd, dtype=dtype)
-    k = _randn(cuda, B, S, K, hd, dtype=dtype)
-    v = _randn(cuda, B, S, K, hd, dtype=dtype)
-    do = _randn(cuda, B, S, H, hd, dtype=dtype)
-    o, lse = ops.flash_attention_reference(q, k, v, causal=causal, window=win,
-                                           return_lse=True)
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, B, S, H, K, hd, win, causal, dtype)
     before = ops.flash_attention_backward.launches
     got = ops.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=win)
     ref = ops.flash_attention_backward_reference(q, k, v, o, do, lse, causal=causal,
@@ -951,6 +972,36 @@ def test_flash_backward_kernel_matches_plain(cuda, B, S, H, K, hd, win, causal, 
     assert all(g.dtype == dtype for g in got)
     _assert_grads_close(got, ref, ("dq", "dk", "dv"), dtype,
                         {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,win,causal,dtype", [
+    (1, 3072, 10, 1, 256, 2048, True, torch.bfloat16), (2, 512, 28, 4, 128, 0, True, torch.bfloat16),
+    (1, 200, 7, 1, 64, 0, True, torch.bfloat16), (2, 300, 8, 2, 64, 100, True, torch.float32),
+    (2, 64, 4, 1, 16, 16, True, torch.bfloat16),
+])
+def test_flash_backward_gives_the_same_bits_twice(cuda, B, S, H, K, hd, win, causal, dtype):
+    """No atomics: every sum, the tensor-core kernels' head-order sum of the
+    partials included, has one order, so two calls are bit-equal."""
+    from repro_torch.kernels.flash_attention import ops
+    inputs = _flash_bwd_inputs(cuda, B, S, H, K, hd, win, causal, dtype)
+    first = ops.flash_attention_backward(*inputs, causal=causal, window=win)
+    second = ops.flash_attention_backward(*inputs, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_backward_bf16_rejects_layouts_tma_cannot_take(cuda):
+    """A bf16 dO whose base is not 16-byte aligned (contiguous, so the
+    wrapper keeps it) raises ValueError before any launch."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 1, 64, 4, 2, 128, 0, True, torch.bfloat16)
+    n = do.numel()
+    shifted = torch.empty(n + 8, dtype=torch.bfloat16, device="cuda")[1:n + 1].view(do.shape)
+    shifted.copy_(do)
+    before = ops.flash_attention_backward.launches
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        ops.flash_attention_backward(q, k, v, o, shifted, lse)
+    assert ops.flash_attention_backward.launches == before
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.float32, 256),

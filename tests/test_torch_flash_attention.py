@@ -217,3 +217,105 @@ def test_bf16_kernel_args_are_cached_per_layout_and_check_each_base():
     with pytest.raises(ValueError, match="multiples of 16"):
         odd = _bf16(B, S, K * hd + 1)[..., :K * hd].unflatten(-1, (K, hd))
         ops.bf16_kernel_args(q, odd, v, out)
+
+
+# The backward's choice of kernels and its tensor maps are planned in Python
+# (ops.backward_instance, ops.backward_kernel_args): checked here on CPU
+# tensors, before anything launches.
+
+@pytest.mark.parametrize("dtype,hd,family", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.bfloat16, 16, "cc"), (torch.float32, 16, "cc"), (torch.float32, 64, "cc"),
+    (torch.float32, 128, "cc"), (torch.float32, 256, "cc"),
+])
+def test_backward_instance_by_dtype_and_head_dim(dtype, hd, family):
+    """bf16 at the tensor-core head dims takes the wgmma kernels; float32
+    (TF32 would break its tolerance) and bf16 at head_dim 16 the CUDA-core
+    ones, as the forward chooses."""
+    assert ops.backward_instance(dtype, hd) == family
+    assert (family == "tc") == (dtype == torch.bfloat16 and hd in ops.TC_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 3072, 10, 1, 256),        # recurrentgemma-2b's training shape
+    (4, 512, 28, 4, 128),         # qwen2-7b's heads
+    (2, 40, 4, 1, 64),            # S below a tile
+])
+def test_backward_kernel_args_pack_four_plans_of_64_row_boxes(B, S, H, K, hd):
+    q, do = _bf16(B, S, H, hd), _bf16(B, S, H, hd)
+    k, v = _bf16(B, S, K, hd), _bf16(B, S, K, hd)
+    args = list(ops.backward_kernel_args(q, k, v, do))
+    assert len(args) == 4 * len(ops.tensor_map_plan(q, 64).values()) == 44
+    want = [ops.tensor_map_plan(t, ops.BWD_BLOCK).values() for t in (q, k, v, do)]
+    assert args == [x for plan in want for x in plan]
+    assert want[0] == (hd, H, S, B, 2 * hd, 2 * hd * H, 2 * hd * H * S, 64, 1, 64, 1)
+    assert want[1][:4] == (hd, K, S, B) and want[1][9] == ops.BWD_BLOCK == 64
+    assert want[3] == want[0]
+
+
+def test_backward_kernel_args_reject_what_tma_cannot_take():
+    """A base that is not 16-byte aligned in any of q, k, v or dO raises
+    ValueError (the wrapper plans before it allocates or launches), as do a
+    head dim that is not a multiple of 64 and a float32 tensor."""
+    B, S, H, K, hd = 1, 64, 4, 2, 128
+    q, do, k, v = _bf16(B, S, H, hd), _bf16(B, S, H, hd), _bf16(B, S, K, hd), _bf16(B, S, K, hd)
+    ops.backward_kernel_args(q, k, v, do)
+    shifted_q = _bf16(B * S * H * hd + 8)[1:B * S * H * hd + 1].view(B, S, H, hd)
+    shifted_kv = _bf16(B * S * K * hd + 8)[1:B * S * K * hd + 1].view(B, S, K, hd)
+    for args in ((shifted_q, k, v, do), (q, shifted_kv, v, do), (q, k, shifted_kv, do),
+                 (q, k, v, shifted_q)):
+        with pytest.raises(ValueError, match="16-byte aligned base"):
+            ops.backward_kernel_args(*args)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ops.backward_kernel_args(*(_bf16(B, S, n, 96) for n in (H, K, K, H)))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.backward_kernel_args(*(torch.zeros(B, S, n, hd) for n in (H, K, K, H)))
+
+
+def test_backward_grids_and_instances_name_the_kernel_source():
+    """The wrapper's tile sizes and grids are the source's: every kernel
+    ``backward_grids`` names is defined there, the tensor-core entry has an
+    instance at each of ``TC_HEAD_DIMS``, the CUDA-core entry float32 at
+    every head dim and bf16 only at the others."""
+    source = (Path(ops.__file__).parent / "csrc" / "flash_attention_bwd.cu").read_text()
+    assert f"constexpr int TC_BM = {ops.BWD_BLOCK};" in source
+    assert f"constexpr int TC_BN = {ops.BWD_BLOCK};" in source
+    assert f"constexpr int REDUCE_THREADS = {ops.BWD_REDUCE_THREADS};" in source
+    dq_rows, kv_rows = ops.BWD_CC_ROWS
+    assert f"constexpr int DQ_BQ = {dq_rows};" in source
+    assert f"constexpr int KV_BK = {kv_rows};" in source
+    for dtype, hd in ((torch.bfloat16, 256), (torch.float32, 16)):
+        for name in ops.backward_grids(dtype, 1, 100, 4, 2, hd):
+            assert f"{name}_kernel(" in source, name
+    for hd in ops.TC_HEAD_DIMS:
+        assert f"if (hd == {hd}) FLASH_BWD_TC({hd});" in source
+        assert f"FLASH_BWD(__nv_bfloat16, {hd});" not in source
+    for hd in ops.HEAD_DIMS:
+        assert f"FLASH_BWD(float, {hd});" in source
+    for hd in sorted(set(ops.HEAD_DIMS) - set(ops.TC_HEAD_DIMS)):
+        assert f"FLASH_BWD(__nv_bfloat16, {hd});" in source
+
+
+@pytest.mark.parametrize("S,tiles", [(3072, 48), (512, 8), (300, 5), (40, 1)])
+def test_backward_grids_fill_the_card_at_one_kv_head(S, tiles):
+    """The tensor-core dK/dV grid splits each group's query heads over
+    blocks: one block per (64-key tile, query head), so recurrentgemma-2b's
+    [1, 3072, 10, 1, 256] gets 480 blocks for 132 SMs where one per kv head
+    would give 48; the partials' sum takes 4 columns a thread."""
+    B, H, K, hd = 1, 10, 1, 256
+    grids = ops.backward_grids(torch.bfloat16, B, S, H, K, hd)
+    assert grids == {"flash_bwd_tc_dq": tiles * B * H, "flash_bwd_tc_dkdv": tiles * B * H,
+                     "flash_bwd_reduce": -(-(B * S * K * hd // 4) // 256)}
+    assert ops.backward_grids(torch.float32, B, S, H, K, hd) == {
+        "flash_bwd_dq": -(-S // 32) * B * H, "flash_bwd_dkdv": -(-S // 16) * B * K}
+
+
+def test_flash_backward_bf16_cpu_tensors_take_the_plain_formulas():
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(1, 100, 4, 2, 128))
+    out, lse = ops.flash_attention_reference(q, k, v, window=32, return_lse=True)
+    do = torch.ones_like(out)
+    before = ops.flash_attention_backward.launches
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, window=32)
+    want = ops.flash_attention_backward_reference(q, k, v, out, do, lse, window=32)
+    assert ops.flash_attention_backward.launches == before
+    assert all(torch.equal(g, w) and g.dtype == torch.bfloat16 for g, w in zip(got, want))
