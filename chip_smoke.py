@@ -10,10 +10,10 @@ Phases, each of which fails the run on any error:
    flash, flash backward, decode, mLSTM and scan (forward and backward)
    instance its registers and spills
    (``-Xptxas -v``; a queue register instance may have no stack frame)
-   and, where ``cuobjdump`` exists, its HGMMA and UTMALDG counts (an instance
-   that spills, or a tensor-core instance -- bf16 flash forward and
-   backward, the mLSTM state and output passes -- that lacks either, fails
-   the run);
+   and, where ``cuobjdump`` exists, its HGMMA, UTMALDG and UBLKCP counts (an
+   instance that spills, a tensor-core instance -- bf16 flash forward and
+   backward, the mLSTM state and output passes -- that lacks HGMMA or
+   UTMALDG, or a scan backward without UTMALDG, fails the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
    (attention at head_dim 16, 64, 128 and 256, bf16 3e-2, float32 2e-5,
@@ -31,9 +31,11 @@ Phases, each of which fails the run on any error:
    type). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
    time, no host gaps) in 7 turns of alternating order: the median, with
    the min and max and the time of calls made one by one from the host
-   (``eager_ms``). The decode row names its split plan and grid size; the
-   decode kernel is also built with its phase clocks and each phase's share
-   of a block's cycles printed at both serving shapes (``decode_phases``);
+   (``eager_ms``). The scan is timed also at recurrentgemma-2b's training
+   shape [1, 3072, 2560] (``training_shape``). The decode row names its
+   split plan and grid size; the decode kernel is also built with its phase
+   clocks and each phase's share of a block's cycles printed at both
+   serving shapes (``decode_phases``);
 3. small models: a 2-layer qwen2-shaped model (head_dim 128), an 8-layer
    xLSTM-shaped model (dqk 128, dv 256) and a 5-layer RecurrentGemma-shaped
    model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
@@ -89,9 +91,13 @@ Phases, each of which fails the run on any error:
    heads, bf16 and float32 at head dims 16, 64, 128 and 256, bf16 also at
    each tensor-core instance's edges, with the forward kernels'
    log-sum-exp, and a second call bit-equal to the first; the scan at
-   [1, 3072, 2560], [4, 512, 2560] and the launchers' shapes) and timed
-   beside their bounds (flash also beside SDPA's backward with the same
-   mask); ``train_reduced``: three steps of the train launcher's reduced
+   [1, 3072, 2560], [4, 512, 2560], the launchers' shapes and its plan's
+   edges, a second call bit-equal, each case's staging path printed, TMA
+   at the recurrentgemma-2b shapes and there the plain loads' bits the
+   same) and timed beside their bounds (flash also beside SDPA's backward
+   with the same mask; the scan at both recurrentgemma-2b shapes with its
+   plan, blocks, blocks an SM, resident clusters and shared bytes);
+   ``train_reduced``: three steps of the train launcher's reduced
    recurrentgemma-2b and qwen2-7b on the card against the same steps on
    the CPU; ``train_launcher``: ``python -m repro_torch.launch.train
    --reduced --arch recurrentgemma-2b`` for 4 steps, resumed to 6, against
@@ -205,16 +211,21 @@ def max_err(torch, out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
-# library -> (phase name, entry-function pattern, instances that must use
-# wgmma (HGMMA) and TMA (UTMALDG)); every instance must be free of spills.
+# library -> (phase name, entry-function pattern, {instance pattern: the SASS
+# instructions such an instance must contain}): wgmma (HGMMA), TMA loads
+# (UTMALDG), bulk copies (UBLKCP). Every instance must be free of spills.
+TENSOR_CORE = ("HGMMA", "UTMALDG")
 BUILD_REPORTS = {
-    "flash_attention": ("flash_build", r"flash_(tc|cc)_kernel", r"flash_tc"),
-    "flash_attention_bwd": ("flash_bwd_build", r"flash_bwd_\w+_kernel", r"flash_bwd_tc"),
-    "decode_attention": ("decode_build", r"decode_split_kernel", None),
-    "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel", r"mlstm_(state|out)"),
-    "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", None),
-    "queue_core": ("queue_build", r"queue_flush_kernel", None),
+    "flash_attention": ("flash_build", r"flash_(tc|cc)_kernel", {r"flash_tc": TENSOR_CORE}),
+    "flash_attention_bwd": ("flash_bwd_build", r"flash_bwd_\w+_kernel",
+                            {r"flash_bwd_tc": TENSOR_CORE}),
+    "decode_attention": ("decode_build", r"decode_split_kernel", {}),
+    "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel",
+                    {r"mlstm_(state|out)": TENSOR_CORE}),
+    "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", {r"rglru_scan_bwd": ("UTMALDG",)}),
+    "queue_core": ("queue_build", r"queue_flush_kernel", {}),
 }
+SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP")
 
 
 QUEUE_INSTANCES = [f"queue_flush<{r}>" for r in (0, 1, 2, 4, 8, 16)]
@@ -233,13 +244,14 @@ def _instance_label(name: str, match) -> str:
 
 def build_report(libs) -> None:
     """Registers and spills (``-Xptxas -v``) of each kernel instance and,
-    where ``cuobjdump`` exists, its count of HGMMA (wgmma) and UTMALDG (TMA
-    load) instructions, one record per library. Fails if an instance spills,
-    or if a tensor-core instance lacks either instruction."""
+    where ``cuobjdump`` exists, its count of HGMMA (wgmma), UTMALDG (TMA
+    load) and UBLKCP (bulk copy) instructions, one record per library. Fails
+    if an instance spills, or lacks an instruction ``BUILD_REPORTS`` requires
+    of it."""
     from repro_torch.kernels import _build
     log = _build.build_log()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    for lib, (phase, pattern, tensor_core) in BUILD_REPORTS.items():
+    for lib, (phase, pattern, required) in BUILD_REPORTS.items():
         instances = {}
         for name, body in re.findall(r"Compiling entry function '(\w+)'[^\n]*\n(.*?)"
                                      r"(?=Compiling entry function|\Z)", log, re.S):
@@ -261,8 +273,7 @@ def build_report(libs) -> None:
             for section in sass.split("Function : ")[1:]:
                 fn = section.split(None, 1)[0]
                 if fn in instances:
-                    instances[fn]["HGMMA"] = section.count("HGMMA")
-                    instances[fn]["UTMALDG"] = section.count("UTMALDG")
+                    instances[fn].update({op: section.count(op) for op in SASS_COUNTS})
         rows = sorted(instances.values(), key=lambda r: r["instance"])
         emit({"phase": phase, "cuobjdump": cuobjdump.is_file(), "instances": rows})
         if not rows:
@@ -270,9 +281,9 @@ def build_report(libs) -> None:
         for r in rows:
             if r["spill_stores"] or r["spill_loads"]:
                 raise AssertionError(f"{lib} instance {r} spills")
-            if tensor_core and re.match(tensor_core, r["instance"]) and (
-                    r.get("HGMMA", 1) == 0 or r.get("UTMALDG", 1) == 0):
-                raise AssertionError(f"{lib} instance {r} is off wgmma/TMA")
+            for which, ops in required.items():
+                if re.match(which, r["instance"]) and any(r.get(op, 1) == 0 for op in ops):
+                    raise AssertionError(f"{lib} instance {r} lacks one of {ops}")
         if lib == "queue_core":               # every slot tier built, register ones in registers
             if {r["instance"] for r in rows} != set(QUEUE_INSTANCES):
                 raise AssertionError(f"queue_core instances {rows}")
@@ -584,6 +595,7 @@ def check_rglru(torch, gen, dev):
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (B, S, W, dtype, tol, variant)
         (4, 512, 2560, f32, 2e-5, None),           # recurrentgemma-2b prefill
+        (1, 3072, 2560, f32, 2e-5, None),          # recurrentgemma-2b training
         (*launcher_default_shapes()[1], f32, 2e-5, None),  # reduced, launcher defaults
         (2, 512, 512, f32, 2e-5, None),            # tests/test_kernels.py
         (1, 256, 1024, f32, 2e-5, None),
@@ -630,12 +642,13 @@ def check_rglru(torch, gen, dev):
           "max_abs_err": err, "tol": 1e-6})
     if not err < 1e-6:
         raise AssertionError(f"rglru_scan ignores h0: {err}")
-    return errs[0]
+    return errs[0], errs[1]
 
 
-def measure_rglru(torch, gen, dev, peak):
-    """recurrentgemma-2b prefill shape: a, b float32 [4, 512, 2560] from a zero
-    state, as the model calls it, timed as the attention kernels are
+def measure_rglru(torch, gen, dev, peak, B=4, S=512, W=2560):
+    """recurrentgemma-2b prefill shape (or its training shape [1, 3072,
+    2560]): a, b float32 [4, 512, 2560] from a zero state, as the model calls
+    it, timed as the attention kernels are
     (``time_interleaved``: CUDA graphs of 20 calls, 7 turns). 63 MB of a, b
     and h exceed the 50 MB L2, so ``ms`` times one set of inputs. Whether
     some of it stays in L2 from one call to the next shows in
@@ -644,7 +657,6 @@ def measure_rglru(torch, gen, dev, peak):
     linear recurrence."""
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, scan_plan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
-    B, S, W = 4, 512, 2560
     inputs = [(*_rglru_inputs(torch, gen, dev, B, S, W, torch.float32)[:2],
                torch.zeros(B, W, device=dev)) for _ in range(3)]
     turns = time_interleaved(torch, {"kernel": lambda *_: rglru_scan(*inputs[0]),
@@ -1678,29 +1690,44 @@ def check_flash_backward(torch, gen, dev):
 
 def check_rglru_backward(torch, gen, dev):
     """da, db, dh0 of the backward kernel against the plain reverse
-    recurrence on the card, each under ``grad_tol`` (float32)."""
+    recurrence on the card, each under ``grad_tol`` (float32), and a second
+    call bit-equal to the first. Each record names the plan and the staging
+    path (TMA where ``ops.tma_staging`` allows, else plain loads); the
+    recurrentgemma-2b shapes must take TMA, and there plain loads must give
+    the same bits. (2, 3081, 64) leaves a last chunk holding t = 0 alone, (3,
+    1, 128) a chunk of one step: boxes wholly outside the sequence."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.launch.train import build_parser
     targs = build_parser().parse_args([])
     W = reduced_config(get_config("recurrentgemma-2b")).lru_width
-    cases = [(1, 3072, 2560), (4, 512, 2560), (targs.batch, targs.seq, W),
-             launcher_default_shapes()[1], (2, 10, 256), (3, 1, 128), (1, 5000, 64),
-             (2, 300, 33)]
+    rg_shapes = [(1, 3072, 2560), (4, 512, 2560)]
+    cases = [*rg_shapes, (targs.batch, targs.seq, W), launcher_default_shapes()[1],
+             (2, 10, 256), (3, 1, 128), (1, 5000, 64), (2, 300, 33), (2, 3081, 64),
+             (2, 1000, 100)]
     errs = {}
     for B, S, W in cases:
         a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
         h = ops.rglru_scan(a, b, h0)
         dh = torch.randn(B, S, W, generator=gen, device=dev)
         got = ops.rglru_scan_backward(a, h, h0, dh)
+        again = ops.rglru_scan_backward(a, h, h0, dh)
         ref = ops.rglru_scan_backward_reference(a, h, h0, dh)
         torch.cuda.synchronize()
         err, report, ok = grad_errors(torch, got, ref, ("da", "db", "dh0"), torch.float32,
                                       2e-5)
-        emit({"phase": "check", "kernel": "rglru_scan_backward", "shape": [B, S, W],
-              "plan": list(ops.scan_plan(S)), "max_abs_err": err, **report})
-        if not ok:
-            raise AssertionError(f"rglru_scan backward disagrees: {report}")
+        tma = ops.tma_staging(a, h, dh)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        record = {"phase": "check", "kernel": "rglru_scan_backward", "shape": [B, S, W],
+                  "plan": list(ops.scan_plan(S)),
+                  "staging": "tma" if tma else "plain loads", "second_call_bit_equal": same}
+        if (B, S, W) in rg_shapes:
+            plain = ops._launch_backward(a, h, h0, dh, tma=False)
+            record["plain_loads_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, plain))
+            ok = ok and tma and record["plain_loads_bit_equal"]
+        emit({**record, "max_abs_err": err, **report})
+        if not (ok and same):
+            raise AssertionError(f"rglru_scan backward disagrees: {record} {report}")
         errs[(B, S, W)] = err
     return errs
 
@@ -1756,12 +1783,15 @@ def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
 
 
 def measure_rglru_backward(torch, gen, dev, peak, B, S, W):
-    """The backward kernel at recurrentgemma-2b's training shape (float32),
-    as ``measure_rglru`` times the forward (CUDA graphs of 20 calls, 7
+    """The backward kernel at a training shape (float32), as
+    ``measure_rglru`` times the forward (CUDA graphs of 20 calls, 7
     turns). Bound: a, h, dh and h0 read and da, db, dh0 written once; two
     FMA-sized operations and a product a step at the float32 rate. No
     library yardstick: no single PyTorch call computes the reverse
-    recurrence."""
+    recurrence. Also the plan (the forward's ``ops.scan_plan``), its blocks
+    and clusters, shared bytes a block and the clusters the card holds at
+    once (``ops.backward_residency``: the CUDA runtime's count), the blocks an SM
+    that makes, and the staging path."""
     from repro_torch.kernels.rglru_scan import ops
     a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
     h = ops.rglru_scan(a, b, h0)
@@ -1772,10 +1802,16 @@ def measure_rglru_backward(torch, gen, dev, peak, B, S, W):
     flops = 3 * B * S * W
     nbytes = 4 * (5 * B * S * W + 2 * B * W)
     plan = ops.scan_plan(S)
+    clusters = -(-W // ops.BWD_TILE_W) * B
+    smem, resident = ops.backward_residency(plan)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     one = turns["kernel"]
     return {**measured(one["median"], plain, None, flops, nbytes, peak[2], peak[1]),
             "min_max_ms": one["min_max"], "eager_ms": one["eager_ms"],
-            "scan_plan": list(plan), "blocks": plan.clusters * -(-W // 64) * B}
+            "scan_plan": list(plan), "blocks": clusters * plan.clusters, "clusters": clusters,
+            "smem_bytes": smem, "resident_clusters": resident,
+            "resident_blocks_per_sm": resident * plan.clusters / sms,
+            "staging": "tma" if ops.tma_staging(a, h, dh) else "plain loads"}
 
 
 def _metrics(m: dict) -> dict:
@@ -1983,7 +2019,7 @@ def main() -> int:
     flash_err = check_flash(torch, gen, dev)
     decode_err = check_decode(torch, gen, dev)
     mlstm_err = check_mlstm(torch, gen, dev)
-    rglru_err = check_rglru(torch, gen, dev)
+    rglru_err, rglru_train_err = check_rglru(torch, gen, dev)
     flash_t = measure_flash(torch, gen, dev, peak, 4, 512, 28, 4, 128)
     flash_rg_t = measure_flash(torch, gen, dev, peak, 4, 512, 10, 1, 256, window=2048)
     decode_t = measure_decode(torch, gen, dev, peak, 4, 28, 4, 544, 128, n_caches=16)
@@ -1991,11 +2027,13 @@ def main() -> int:
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
+    rglru_train_t = measure_rglru(torch, gen, dev, peak, 1, 3072, 2560)
     flash_bwd_err = check_flash_backward(torch, gen, dev)
     rglru_bwd_err = check_rglru_backward(torch, gen, dev)
     flash_bwd_t = measure_flash_backward(torch, gen, dev, peak, 1, 3072, 10, 1, 256, 2048)
     flash_bwd_qwen_t = measure_flash_backward(torch, gen, dev, peak, 4, 512, 28, 4, 128, 0)
     rglru_bwd_t = measure_rglru_backward(torch, gen, dev, peak, 1, 3072, 2560)
+    rglru_bwd_4_t = measure_rglru_backward(torch, gen, dev, peak, 4, 512, 2560)
     from repro_torch.kernels.queue_core import ops as queue_ops
     queue_err = check_queue(torch, dev)
     campaign_dir = ROOT / "build" / "chip_smoke_campaign"
@@ -2057,7 +2095,9 @@ def main() -> int:
                    mlstm_err, mlstm_t, launches["mlstm_chunk"]),
         kernel_row("rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/"
                    "rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46",
-                   rglru_err, rglru_t, launches["rglru_scan"]),
+                   rglru_err, rglru_t, launches["rglru_scan"],
+                   training_shape=shape_figures([1, 3072, 2560], rglru_train_err,
+                                                rglru_train_t)),
         kernel_row("queue_core", "src/repro_torch/kernels/queue_core/csrc/queue_core.cu",
                    "src/repro/workloads/queueing.py:598", queue_err, queue_full_t,
                    queue_launches, shape="full grid, shard 0/252, first chunk's flush",
@@ -2083,7 +2123,9 @@ def main() -> int:
                    launches["rglru_scan_backward"],
                    replaces_kind="new: the JAX package differentiates lax.associative_scan "
                                  "through XLA; no Pallas backward",
-                   shape=[1, 3072, 2560, "float32"]),
+                   shape=[1, 3072, 2560, "float32"],
+                   batch_4=shape_figures([4, 512, 2560], rglru_bwd_err[(4, 512, 2560)],
+                                         rglru_bwd_4_t)),
     ]
     emit({"phase": "done"})
     print(card, flush=True)

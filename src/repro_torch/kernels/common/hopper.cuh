@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
 // (flash_attention.cu, flash_attention_bwd.cu, mlstm_chunk.cu, rglru_scan.cu):
-// mbarriers, named barriers, 4-D TMA loads and the tensor-map encoder, 1-D
+// mbarriers, named barriers, 3-D and 4-D TMA loads and the tensor-map encoder, 1-D
 // bulk copies, wgmma fences and shared-memory descriptors, and the m64nNk16
 // bf16 products the kernels use. Include as "common/hopper.cuh";
 // kernels/_build.py passes -I for the kernels directory and hashes every
@@ -58,6 +58,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// One box of a 3-D tensor map into shared memory; completes on `bar`.
+// Coordinates may lie partly or wholly outside the dims: those elements
+// arrive as the map's fill (zeros) and still count toward the box's bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // One contiguous run of `bytes` bytes (a multiple of 16; both addresses

@@ -11,16 +11,17 @@ its tiles by bulk copies where ``bulk_copies`` allows them.
 Training: where autograd records (grad mode on and an input that requires
 grad), ``rglru_scan`` runs through ``RGLRUScanFunction``, which keeps the
 forward's h and whose backward calls ``rglru_scan_backward``: on the card
-the backward kernel of ``csrc/rglru_scan.cu`` (the same split-S plan walked
-from the end, float32), on the CPU the explicit reverse recurrence of
-``ref.py``. ``rglru_scan.launches`` counts forward kernel launches and
+the backward kernel of ``csrc/rglru_scan.cu`` (the split-S algorithm walked
+from the end, float32, on the forward's plan; tiles staged by TMA where
+``tma_staging`` allows), on the CPU the explicit reverse recurrence
+of ``ref.py``. ``rglru_scan.launches`` counts forward kernel launches and
 ``rglru_scan_backward.launches`` backward ones.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,6 +57,16 @@ def scan_plan(S: int) -> ScanPlan:
     return ScanPlan(clusters, -(-S // (clusters * rounds)), rounds)
 
 
+BWD_TILE_W = 32      # channels a backward block (128 threads, 4 a channel)
+
+
+def tma_staging(*tensors: torch.Tensor) -> bool:
+    """Whether the backward kernel can stage these contiguous float32
+    [B, S, W] tensors by TMA: a row of W floats a multiple of 16 bytes and
+    16-byte aligned bases. Otherwise it stages them by plain loads."""
+    return all(t.shape[2] * 4 % 16 == 0 and t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def bulk_copies(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether the kernel can stage a and b [B, S, W] by 1-D bulk copies: a
     16-byte aligned base, and batch and seq byte strides (of dims longer
@@ -78,8 +89,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
         + [i64p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.rglru_scan_fwd.restype = ctypes.c_int
-    lib.rglru_scan_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.rglru_scan_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.rglru_scan_bwd.restype = ctypes.c_int
+    lib.rglru_scan_bwd_residency.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.rglru_scan_bwd_residency.restype = ctypes.c_int
     return lib
 
 
@@ -144,20 +157,44 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
         return rglru_scan_backward_reference(a, h, h0, dh)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
+    return _launch_backward(a, h, h0, dh)
+
+
+def _launch_backward(a, h, h0, dh, plan: Optional[ScanPlan] = None,
+                     tma: Optional[bool] = None):
+    """The backward kernel on ``plan`` (``scan_plan(S)`` by default), staged
+    by TMA or plain loads (``tma_staging`` by default; TMA on a layout it
+    cannot take raises). The card tests pass their own."""
     B, S, W = a.shape
     if B > 65535:
         raise ValueError(f"B = {B} exceeds the kernel's grid limit 65535")
     a, h, h0, dh = (t.float().contiguous() for t in (a, h, h0, dh))
+    plan = plan or scan_plan(S)
+    if tma is None:
+        tma = tma_staging(a, h, dh)
+    elif tma and not tma_staging(a, h, dh):
+        raise ValueError("TMA staging needs rows of a multiple of 16 bytes and aligned bases")
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty_like(h0)
     lib = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rglru_scan_bwd(*(t.data_ptr() for t in (a, h, h0, dh, da, db, dh0)),
-                                 B, S, W, *scan_plan(S), stream)
+                                 B, S, W, *plan, int(tma), stream)
     _build.check(lib, err, "rglru_scan_backward")
     rglru_scan_backward.launches += 1
     return da, db, dh0
+
+
+def backward_residency(plan: ScanPlan) -> tuple[int, int]:
+    """A backward block's shared bytes on ``plan``, and how many of its
+    clusters the current card holds at once (``cudaOccupancyMaxActiveClusters``):
+    a grid is one wave where its clusters are no more."""
+    lib, smem, resident = _lib(), ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.rglru_scan_bwd_residency(*plan, ctypes.byref(smem),
+                                                   ctypes.byref(resident)),
+                 "rglru_scan_bwd_residency")
+    return smem.value, resident.value
 
 
 class RGLRUScanFunction(torch.autograd.Function):

@@ -68,3 +68,58 @@ def rglru_scan_backward_reference(a: torch.Tensor, h: torch.Tensor, h0: torch.Te
         db[:, t] = g
         da[:, t] = g * (hf[:, t - 1] if t > 0 else h0.float())
     return da, db, af[:, 0] * g
+
+
+def rglru_scan_backward_chunked(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                                dh: torch.Tensor, plan):
+    """The backward by the CUDA kernel's algorithm, for the tests: the
+    reverse recurrence as a forward one in reversed time u = S - 1 - t
+    (a'_u = a_{S-u}, 0 at u = 0; b'_u = dh_{S-1-u}), cut as ``plan``
+    (clusters, chunk, rounds, ...) says: round r's chunk c covers u from
+    (r clusters + c) chunk. Each chunk folds four quarters into affine maps
+    g -> A g + G and composes them in order; within a round the chunks'
+    carries compose from the round's carry (0 in the first) in chunk order,
+    and each quarter is re-run from its carry (the chunk's, then its earlier
+    quarters'). Then db_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0) and
+    dh0 = a_0 g_0. float32 throughout; returns (da, db, dh0)."""
+    clusters, chunk, rounds = plan[:3]
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    B, S, W = af.shape
+    ar = torch.cat([torch.zeros_like(af[:, :1]), af.flip(1)[:, :-1]], dim=1)   # a'_u
+    br = dhf.flip(1)                                                            # b'_u
+    quarter = -(-chunk // 4)
+    gr = torch.empty_like(af)                                                   # g'_u
+    g = torch.zeros_like(af[:, 0])
+    for r in range(rounds):
+        spans, maps = [], []
+        for c in range(clusters):                   # pass 1: each chunk's quarters
+            u0 = (r * clusters + c) * chunk
+            rows = max(0, min(chunk, S - u0))
+            quarters = []
+            for q in range(4):
+                s0 = min(rows, q * quarter)
+                s1 = min(rows, s0 + quarter)
+                A, G = torch.ones_like(g), torch.zeros_like(g)
+                for u in range(u0 + s0, u0 + s1):
+                    A, G = A * ar[:, u], ar[:, u] * G + br[:, u]
+                quarters.append((u0 + s0, u0 + s1, A, G))
+            A, G = torch.ones_like(g), torch.zeros_like(g)
+            for _, _, qa, qg in quarters:
+                A, G = A * qa, qa * G + qg
+            spans.append(quarters)
+            maps.append((A, G))
+        carries = []
+        for A, G in maps:                           # carry-in, in chunk order
+            carries.append(g)
+            g = A * g + G
+        for quarters, carry in zip(spans, carries):     # pass 2
+            for q, (s0, s1, _, _) in enumerate(quarters):
+                gc = carry
+                for _, _, qa, qg in quarters[:q]:
+                    gc = qa * gc + qg
+                for u in range(s0, s1):
+                    gc = ar[:, u] * gc + br[:, u]
+                    gr[:, u] = gc
+    gt = gr.flip(1)                                  # g_t
+    hprev = torch.cat([h0.float()[:, None], hf[:, :-1]], dim=1)
+    return gt * hprev, gt, af[:, 0] * gt[:, 0]

@@ -1042,6 +1042,7 @@ def test_flash_autograd_on_the_card_goes_through_the_kernels(cuda):
     (1, 3072, 2560), (4, 512, 2560),                    # recurrentgemma-2b training
     SCAN_DEFAULTS, (2, 128, 64),                        # the launcher's reduced model
     (2, 10, 256), (3, 1, 128), (2, 1000, 192), (1, 5000, 64), (2, 300, 33),
+    (2, 3081, 64), (2, 1000, 100),      # t = 0 alone in a chunk; a ragged channel tile
 ])
 def test_rglru_backward_kernel_matches_plain(cuda, B, S, W):
     """da, db, dh0 of the backward kernel against the plain reverse
@@ -1057,6 +1058,53 @@ def test_rglru_backward_kernel_matches_plain(cuda, B, S, W):
     torch.cuda.synchronize()
     assert ops.rglru_scan_backward.launches == before + 1
     _assert_grads_close(got, ref, ("da", "db", "dh0"), torch.float32, 2e-5)
+
+
+def _rglru_backward_inputs(gen, B, S, W):
+    from repro_torch.kernels.rglru_scan import ops
+    a, b, h0 = _rglru_inputs(gen, B, S, W, torch.float32)
+    return a, ops.rglru_scan(a, b, h0), h0, torch.randn(B, S, W, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 3072, 2560), (2, 1000, 100), (2, 3081, 64),
+                                   (3, 1, 128)])
+def test_rglru_backward_gives_the_same_bits_twice_and_by_either_staging(cuda, B, S, W):
+    """No atomics: a second call gives the same bits; the plain-load staging
+    feeds the same arithmetic in the same order as TMA, so it does too."""
+    from repro_torch.kernels.rglru_scan import ops
+    inputs = _rglru_backward_inputs(cuda, B, S, W)
+    assert ops.tma_staging(inputs[0], inputs[1], inputs[3])
+    got = ops.rglru_scan_backward(*inputs)
+    again = ops.rglru_scan_backward(*inputs)
+    plain = ops._launch_backward(*inputs, tma=False)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, plain):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("plan", [(8, 16, 5), (8, 64, 2), (4, 64, 3), (8, 8, 10), (1, 64, 10),
+                                  (2, 1, 300)])
+def test_rglru_backward_takes_any_plan(cuda, plan):
+    """Any plan that covers S (chunks and rounds, a last round of empty
+    chunks too) gives the gradient."""
+    from repro_torch.kernels.rglru_scan import ops
+    inputs = _rglru_backward_inputs(cuda, 2, 600, 96)
+    got = ops._launch_backward(*inputs, plan=ops.ScanPlan(*plan))
+    ref = ops.rglru_scan_backward_reference(*inputs)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, ref, ("da", "db", "dh0"), torch.float32, 2e-5)
+
+
+def test_rglru_backward_plan_is_resident_and_rejects_tma_where_it_cannot(cuda):
+    """At recurrentgemma-2b's training shape the card holds all 80 clusters
+    of the plan at once (the CUDA runtime's count), each block within the default
+    48 KB; TMA on 132-byte rows raises before any launch."""
+    from repro_torch.kernels.rglru_scan import ops
+    smem, resident = ops.backward_residency(ops.scan_plan(3072))
+    assert smem <= 48 * 1024 and resident >= -(-2560 // ops.BWD_TILE_W)
+    inputs = _rglru_backward_inputs(cuda, 2, 40, 33)
+    with pytest.raises(ValueError):
+        ops._launch_backward(*inputs, tma=True)
 
 
 def test_mlstm_chunk_under_autograd_raises_on_the_card(cuda):
