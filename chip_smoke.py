@@ -19,7 +19,9 @@ Phases, each of which fails the run on any error:
    (attention at head_dim 16, 64, 128 and 256, bf16 3e-2, float32 2e-5,
    bf16 flash also at the edges of its tiles and on slices of a fused qkv,
    decode also with empty splits, a long windowed cache, no valid slot and
-   groups of 1 to 16; mLSTM: h and the final state, bf16 3e-2 of max|h| and
+   groups of 1 to 16; both also at qwen3-moe-30b-a3b's heads (32 over 4,
+   hd 128) and gemma3-12b's (16 over 8, hd 256, window 1024: flash past the
+   window at S 1536 and 1100, decode against a wrapped 1024-slot ring); mLSTM: h and the final state, bf16 3e-2 of max|h| and
    state rel 1e-3, float32 rel 1e-4, ragged dv tiles and chunk 73; RG-LRU
    scan: float32 2e-5, bf16 3e-2, also S shorter than a chunk, S = 1, S not
    a multiple of the cluster, several rounds, ragged channel tiles, a chunk
@@ -31,29 +33,42 @@ Phases, each of which fails the run on any error:
    type). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
    time, no host gaps) in 7 turns of alternating order: the median, with
    the min and max and the time of calls made one by one from the host
-   (``eager_ms``). The scan is timed also at recurrentgemma-2b's training
+   (``eager_ms``). Flash and decode are timed also at qwen3-moe-30b-a3b's
+   and gemma3-12b's serving shapes (``qwen3_moe``, ``gemma3``), flash past
+   gemma3's window (SDPA with the same boolean mask) and decode on its
+   wrapped ring. The scan is timed also at recurrentgemma-2b's training
    shape [1, 3072, 2560] (``training_shape``). The decode row names its
    split plan and grid size; the decode kernel is also built with its phase
    clocks and each phase's share of a block's cycles printed at both
    serving shapes (``decode_phases``);
 3. small models: a 2-layer qwen2-shaped model (head_dim 128), an 8-layer
-   xLSTM-shaped model (dqk 128, dv 256) and a 5-layer RecurrentGemma-shaped
-   model (head_dim 256, 10 heads over 1 kv head, window 16 < S) in float32
-   serve the same prompts on the card and on the CPU; logits and greedy
-   tokens must agree;
+   xLSTM-shaped model (dqk 128, dv 256), a 5-layer RecurrentGemma-shaped
+   model (head_dim 256, 10 heads over 1 kv head, window 16 < S), a 2-layer
+   qwen3-moe-shaped model (QK-norm, group 8, an MoE whose prefill drops
+   pairs) and a 6-layer gemma3-shaped model (QK-norm, hd 256, group 2,
+   window 16 < S, local theta) in float32 serve the same prompts on the
+   card and on the CPU; logits and greedy tokens must agree, and the MoE
+   model's prefill must give the same bits on a second call;
 4. serving: ``repro_torch.launch.serve`` first with its defaults (the card,
-   reduced float32 models at head_dim 16: qwen2-7b, recurrentgemma-2b and
-   xlstm-1.3b, 32 requests each), whose greedy tokens must equal the same
-   run's with ``--device cpu``; then 8 requests of qwen2-7b, of xlstm-1.3b
-   and of recurrentgemma-2b at their published widths (random bf16 weights
-   from a seed) on cuda:0. Before each run every launch counter is zeroed,
+   reduced float32 models at head_dim 16: qwen2-7b, recurrentgemma-2b,
+   xlstm-1.3b, qwen3-moe-30b-a3b and gemma3-12b, 32 requests each), whose
+   greedy tokens must equal the same run's with ``--device cpu``; then 8
+   requests of qwen2-7b, xlstm-1.3b, recurrentgemma-2b, qwen3-moe-30b-a3b
+   and gemma3-12b at their published widths (random bf16 weights from a
+   seed) on cuda:0, one model at a time. Before each run every launch counter is zeroed,
    and the plain attention, mLSTM and scan versions are made to raise until
    it ends, so each run proves that every attention, mLSTM or RG-LRU
    prefill call went through the kernels;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
    each served model: kernel time by name (the top eight and every kernel of
    the port) and the device's idle share; for xlstm-1.3b also the wall time
-   of one mLSTM and one sLSTM block;
+   of one mLSTM and one sLSTM block; for qwen3-moe-30b-a3b the MoE's share
+   of a decode step (router and dispatch, expert products, combine, each
+   timed over the 48 layers in turn; ``moe_decode_split``) beside the
+   weight-read bounds, one MoE layer's bits on a second prefill-sized call,
+   and the sampler on the profiled prefill's logits (``filter_logits`` on
+   the card gives the CPU's bits, ``sample`` with the same noise the same
+   tokens);
 6. campaign: the batched WS request-queue kernel (``queue_flush``, one
    launch a flush) against its plain version on random jobs of both
    capacity kinds, the CPU tests' edges, the 192-job piecewise set, the
@@ -98,8 +113,8 @@ Phases, each of which fails the run on any error:
    with the same mask; the scan at both recurrentgemma-2b shapes with its
    plan, blocks, blocks an SM, resident clusters and shared bytes);
    ``train_reduced``: three steps of the train launcher's reduced
-   recurrentgemma-2b and qwen2-7b on the card against the same steps on
-   the CPU; ``train_launcher``: ``python -m repro_torch.launch.train
+   recurrentgemma-2b, qwen2-7b and qwen3-moe-30b-a3b (its loss with the
+   MoE's auxiliary losses) on the card against the same steps on the CPU; ``train_launcher``: ``python -m repro_torch.launch.train
    --reduced --arch recurrentgemma-2b`` for 4 steps, resumed to 6, against
    an uninterrupted 6; ``train_full_width``: recurrentgemma-2b at its
    published widths through ``ElasticTrainer.train_steps``, 4 steps of 1 ×
@@ -332,6 +347,14 @@ def check_flash(torch, gen, dev):
         (2, 300, 8, 2, 64, 0, True, "fused", 3e-2),
         (2, 500, 28, 4, 64, 0, True, torch.float32, 2e-5),
         (1, 256, 4, 4, 64, 63, True, torch.float32, 2e-5),
+        # qwen3-moe-30b-a3b (group 8, QK-norm in front) and gemma3-12b (group 2,
+        # hd 256, window 1024 on its local layers; past the window at S > 1024)
+        (4, 512, 32, 4, 128, 0, True, torch.bfloat16, 3e-2),
+        (2, 300, 32, 4, 128, 0, True, torch.float32, 2e-5),
+        (4, 512, 16, 8, 256, 1024, True, torch.bfloat16, 3e-2),
+        (4, 512, 16, 8, 256, 0, True, torch.bfloat16, 3e-2),
+        (1, 1536, 16, 8, 256, 1024, True, torch.bfloat16, 3e-2),
+        (1, 1100, 16, 8, 256, 1024, True, torch.float32, 2e-5),
     ]
     errs = {}
     for B, S, H, K, hd, win, causal, dtype, tol in cases:
@@ -352,6 +375,8 @@ def check_flash(torch, gen, dev):
         if not err < tol:
             raise AssertionError(f"flash_attention disagrees: {err} >= {tol}")
         errs.setdefault(hd, err)              # the first case of each head dim
+        if dtype == torch.bfloat16:           # and of each bf16 shape
+            errs.setdefault((B, S, H, K, hd, win), err)
     return errs
 
 
@@ -395,14 +420,23 @@ def check_decode(torch, gen, dev):
         (4, 10, 1, 64, 544, 2048, 513, torch.bfloat16, 3e-2),
         (2, 8, 2, 64, 5, 0, 5, torch.float32, 2e-5),             # L 5 < splits
         (1, 16, 1, 64, 300, 0, 300, torch.float32, 2e-5),
+        # qwen3-moe-30b-a3b (group 8) and gemma3-12b (group 2, hd 256; its local
+        # layers' ring of 1024 slots, wrapped)
+        (4, 32, 4, 128, 544, 0, 544, torch.bfloat16, 3e-2),      # qwen3-moe, last step
+        (4, 32, 4, 128, 544, 0, 513, torch.bfloat16, 3e-2),      # first step
+        (2, 32, 4, 128, 300, 0, 300, torch.float32, 2e-5),
+        (4, 16, 8, 256, 544, 1024, 544, torch.bfloat16, 3e-2),   # gemma3, local layer
+        (4, 16, 8, 256, 544, 0, 513, torch.bfloat16, 3e-2),      # global layer
+        (4, 16, 8, 256, 1024, 1024, None, torch.bfloat16, 3e-2),  # wrapped ring
+        (1, 16, 8, 256, 1024, 1024, None, torch.float32, 2e-5),
     ]
     errs = {}
     for B, H, K, hd, L, win, fill, dtype, tol in cases:
         q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
         ck = torch.randn(B, L, K, hd, generator=gen, device=dev).to(dtype)
         cv = torch.randn(B, L, K, hd, generator=gen, device=dev).to(dtype)
-        if fill is None:                    # 700 tokens through a 256-slot ring
-            cur = 699
+        if fill is None:                    # 700 tokens through a 256-slot ring,
+            cur = max(699, L + L // 2 - 1)  # 1536 through a 1024-slot one
             sp = torch.arange(L, device=dev) + (cur + 1 - L)
             sp = sp.roll(int((cur + 1) % L)).to(torch.int32)
         else:                               # fill 0: an empty cache, cur_pos -1
@@ -419,6 +453,8 @@ def check_decode(torch, gen, dev):
         if not err < tol:
             raise AssertionError(f"decode_attention disagrees: {err} >= {tol}")
         errs.setdefault(hd, err)              # the first case of each head dim
+        if dtype == torch.bfloat16:           # and of each bf16 shape
+            errs.setdefault((B, H, K, hd, L, win), err)
     return errs
 
 
@@ -426,39 +462,47 @@ def measure_flash(torch, gen, dev, peak, B, S, H, K, hd, window=0):
     """A serving prefill shape, bf16, causal, with the model's window
     (2048 >= S for recurrentgemma-2b). Inputs are fresh projections in the
     model, so they are timed warm in L2 (15 MB of q/k/v for qwen2-7b, 13 MB
-    for recurrentgemma-2b)."""
+    for recurrentgemma-2b). With a window shorter than S, SDPA takes the
+    same mask as a boolean ``attn_mask`` and the bound counts only the
+    visible pairs."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
-    if 0 < window < S:
-        raise ValueError("the SDPA yardstick here is causal only: window >= S")
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, S, K, hd, generator=gen, device=dev).bfloat16()
     inputs = [(q, k, v)]
+    sdpa_mask = {"is_causal": True}
+    if 0 < window < S:
+        pos = torch.arange(S, device=dev)
+        sdpa_mask = {"attn_mask": (pos[None, :] <= pos[:, None])
+                     & (pos[None, :] > pos[:, None] - window)}
     turns = time_interleaved(torch, {
         "kernel": lambda a, b, c: flash_attention(a, b, c, window=window),
         "library": lambda a, b, c: F.scaled_dot_product_attention(
             a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True, enable_gqa=True)}, inputs)
+            enable_gqa=True, **sdpa_mask)}, inputs)
     plain = time_ms(torch, lambda a, b, c: flash_attention_reference(
         a, b, c, window=window), inputs)
-    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
+    pairs = visible_pairs(S, window)               # causal (q, k) pairs in the window
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
     return interleaved_figures(turns, plain, flops, nbytes, peak)
 
 
-def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches):
+def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches, cur=None):
     """A serving decode shape at its last step (all L slots valid), bf16.
     ``n_caches`` caches rotate so that reads come from HBM, as in the model,
     where the layers' caches and weights do not fit in L2 (16 x 4.5 MB for
-    qwen2-7b, 48 x 2.2 MB for recurrentgemma-2b)."""
+    qwen2-7b, 48 x 2.2 MB for recurrentgemma-2b). With ``cur`` >= L the
+    cache is a ring that has wrapped: slot s holds the newest position
+    p <= cur with p % L == s (every slot valid, so the work is the same)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
-    sp = torch.arange(L, device=dev, dtype=torch.int32)
-    cur = L - 1
+    cur = L - 1 if cur is None else cur
+    slot = torch.arange(L, device=dev)
+    sp = (cur - (cur - slot) % L).to(torch.int32)
     inputs = []
     for _ in range(n_caches):
         inputs.append((torch.randn(B, H, hd, generator=gen, device=dev).bfloat16(),
@@ -710,9 +754,12 @@ def shape_figures(shape, err, figures):
 
 
 def check_small_model(torch, dev, cfg, S: int):
-    """A small float32 model: prefill logits and greedy tokens, card vs CPU."""
+    """A small float32 model: prefill logits and greedy tokens, card vs CPU.
+    For an MoE model also the pairs its prefill dropped on the card (some
+    must drop) and a second prefill's logits, which must be the same bits."""
     import numpy as np
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.runtime.serving_pool import ServingPool
     cpu_model = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     with torch.no_grad():      # non-zero biases, norm scales, conv_b, out_scale
@@ -728,6 +775,24 @@ def check_small_model(torch, dev, cfg, S: int):
         want, _ = M.prefill(cpu_model, tokens, max_len=S + 8)
         got, _ = M.prefill(gpu_model, tokens.to(dev), max_len=S + 8)
     err = max_err(torch, got.cpu(), want)
+    moe_record, moe_ok = {}, True
+    if cfg.moe is not None:
+        dropped, dispatch = [], moe.dispatch
+
+        def counted(*args):
+            buf, coords = dispatch(*args)
+            dropped.append(int((~coords[3]).sum()))
+            return buf, coords
+
+        moe.dispatch = counted
+        try:
+            with torch.inference_mode():
+                again, _ = M.prefill(gpu_model, tokens.to(dev), max_len=S + 8)
+        finally:
+            moe.dispatch = dispatch
+        moe_record = {"moe_pairs_dropped_by_layer": dropped,
+                      "moe_second_call_bit_equal": torch.equal(again, got)}
+        moe_ok = sum(dropped) > 0 and moe_record["moe_second_call_bit_equal"]
     toks = {}
     for d, model in (("cpu", cpu_model), ("cuda", gpu_model)):
         pool = ServingPool(cfg, model)
@@ -736,24 +801,35 @@ def check_small_model(torch, dev, cfg, S: int):
     same = bool((toks["cpu"] == toks["cuda"]).all())
     emit({"phase": "small_model", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "prompt": [2, S], "prefill_logits_max_abs_err": err,
-          "tol": 1e-3, "greedy_tokens_identical": same, "shape": list(toks["cuda"].shape)})
-    if not (err < 1e-3 and same and toks["cuda"].shape == (2, 8)):
+          "tol": 1e-3, "greedy_tokens_identical": same, "shape": list(toks["cuda"].shape),
+          **moe_record})
+    if not (err < 1e-3 and same and toks["cuda"].shape == (2, 8) and moe_ok):
         raise AssertionError(f"{cfg.name}: port on the card disagrees with the CPU path")
 
 
 def small_configs():
     """qwen2-shaped (head_dim 128, GQA 7), xLSTM-shaped (dqk 128, dv 256, the
-    7:1 pattern) and RecurrentGemma-shaped (head_dim 256, 10 heads over 1 kv
+    7:1 pattern), RecurrentGemma-shaped (head_dim 256, 10 heads over 1 kv
     head, window 16 < S, one pattern repeat and a 2-layer rglru tail, tied
-    embeddings, softcap) float32 models, small enough for the CPU."""
-    from repro_torch.configs import get_config
+    embeddings, softcap), qwen3-moe-shaped (QK-norm, head_dim 128, 32 heads
+    over 4; 8 experts, top-2, capacity factor 1: the prefill's 80 tokens
+    give an expert 24 slots for 20 pairs on average, so some drop) and
+    gemma3-shaped (QK-norm, head_dim 256, 16 heads over 8, 5 local layers
+    at theta 10k with window 16 < S and a global one, tied embeddings, gelu)
+    float32 models, small enough for the CPU."""
+    from repro_torch.configs import MoEConfig, get_config
     f32 = dict(param_dtype="float32", compute_dtype="float32", vocab_size=1024)
     return [(get_config("qwen2-7b").with_(num_layers=2, d_model=256, d_ff=512, **f32), 40),
             (get_config("xlstm-1.3b").with_(num_layers=8, d_model=256, num_heads=2,
                                             **f32), 40),
             (get_config("recurrentgemma-2b").with_(num_layers=5, d_model=256, d_ff=512,
                                                    rnn_width=256, window_size=16,
-                                                   **f32), 40)]
+                                                   **f32), 40),
+            (get_config("qwen3-moe-30b-a3b").with_(
+                num_layers=2, d_model=256, moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=64,
+                                                         capacity_factor=1.0), **f32), 40),
+            (get_config("gemma3-12b").with_(num_layers=6, d_model=256, d_ff=512,
+                                            window_size=16, **f32), 40)]
 
 
 PLAIN_VERSIONS = {  # wrapper module, plain version a CPU tensor takes
@@ -898,9 +974,10 @@ def _device_breakdown(torch, prof, wall_s: float, steps: int) -> dict:
             "port_kernels": [row(e) for e in port]}
 
 
-def profile_serving(torch, pool):
+def profile_serving(torch, pool) -> dict:
     """torch.profiler over one prefill and 8 decode steps of the served model
-    (batch 4, prompt 512), after the counted main path."""
+    (batch 4, prompt 512), after the counted main path. Returns the decode
+    step's breakdown and the profiled prefill's logits [4, V] (on the card)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
@@ -919,6 +996,7 @@ def profile_serving(torch, pool):
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
         prefill = _device_breakdown(torch, prof, prefill_s, 1)
+        prefill_logits = logits
         tok = logits.argmax(-1)
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
@@ -931,6 +1009,110 @@ def profile_serving(torch, pool):
     emit({"phase": "profile", "arch": model.cfg.name, "note": "profiler on: wall "
           "times include its recording overhead", "prefill": prefill,
           "decode_step": decode})
+    return {"decode_step": decode, "prefill_logits": prefill_logits}
+
+
+def moe_decode_split(torch, model, peak, decode: dict, serve_ms_per_step: float) -> None:
+    """Where a decode step's MoE time goes in the served MoE model (batch 4,
+    one token a row): the router and the dispatch, the expert products and
+    the combine of each layer, over every layer in turn (so each layer's
+    experts come from HBM, as in a step), times the layers: device time
+    (``torch.profiler``'s kernel time) and CUDA-event time of calls made one
+    by one from the host (launch gaps included); beside the profiled step's
+    device busy and wall time
+    (``decode``), the unprofiled serve's ms a step, the expert products'
+    weight-read bound and the whole step's (every weight but the embedding
+    table read once). Also: one layer's MoE on a prefill-sized input
+    ([4, 512], where pairs drop) gives the same bits on a second call."""
+    from repro_torch.models import moe
+    layers = [b.moe for b in model.layers]
+    m, n = layers[0].m, len(layers)
+    D = model.cfg.d_model
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    xf = torch.randn(1, 4, D, generator=gen, device=model.device).to(model.compute_dtype)
+    cap = moe.capacity(4, m)
+
+    def route_dispatch(layer):
+        _, _, top_p, top_i = layer.route(xf)
+        return moe.dispatch(xf, top_p, top_i, m.num_experts, cap)
+
+    def device_ms(fn, inputs):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for args in inputs:
+                fn(*args)
+            torch.cuda.synchronize()
+        return _device_breakdown(torch, prof, time.perf_counter() - t0,
+                                 len(inputs))["device_busy_ms_per_step"]
+
+    with torch.inference_mode():
+        staged = [route_dispatch(layer) for layer in layers]
+        outs = [layer.experts(buf) for layer, (buf, _) in zip(layers, staged)]
+        pieces = {
+            "router_and_dispatch": (route_dispatch, [(layer,) for layer in layers]),
+            "expert_products": (lambda layer, buf: layer.experts(buf),
+                                [(layer, buf) for layer, (buf, _) in zip(layers, staged)]),
+            "combine": (lambda yb, coords: moe.combine(yb, coords, m.top_k),
+                        [(yb, coords) for yb, (_, coords) in zip(outs, staged)]),
+            "whole_moe_layer": (lambda layer: layer(xf.view(4, 1, D), groups=1,
+                                                    with_aux=False),
+                                [(layer,) for layer in layers])}
+        event = {k: time_ms(torch, fn, inputs, iters=n) for k, (fn, inputs) in pieces.items()}
+        device = {k: device_ms(fn, inputs) for k, (fn, inputs) in pieces.items()}
+        x = torch.randn(4, 512, D, generator=gen, device=model.device).to(model.compute_dtype)
+        first, _ = layers[0](x, groups=1, with_aux=False)
+        second, _ = layers[0](x, groups=1, with_aux=False)
+        bit_equal = torch.equal(first, second)
+    per_step = {k: v * n for k, v in device.items()}
+    expert_bytes = sum(w.numel() * w.element_size() for layer in layers
+                       for w in (layer.wi_gate, layer.wi_up, layer.wo))
+    weight_bytes = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+                       if name != "embed.table")
+    busy = decode["device_busy_ms_per_step"]
+    emit({"phase": "moe_decode_split", "arch": model.cfg.name, "layers": n,
+          "tokens": 4, "capacity": cap, "device_ms_per_call": device,
+          "event_ms_per_call_one_by_one": event, "device_ms_per_step": per_step,
+          "share_of_device_busy": {k: v / busy for k, v in per_step.items()},
+          "profiled_step_device_busy_ms": busy,
+          "profiled_step_wall_ms": decode["wall_ms_per_step"],
+          "serve_decode_ms_per_step": serve_ms_per_step,
+          "expert_weight_bytes_per_step": expert_bytes,
+          "expert_products_bound_ms": expert_bytes / peak[1] * 1e3,
+          "weight_bytes_per_step": weight_bytes,
+          "step_weight_read_bound_ms": weight_bytes / peak[1] * 1e3,
+          "prefill_sized_moe_second_call_bit_equal": bit_equal})
+    if not bit_equal:
+        raise AssertionError("the MoE gave other bits on a second call")
+
+
+SAMPLER_CONFIGS = (dict(greedy=True), dict(), dict(temperature=0.7), dict(top_k=50),
+                   dict(top_p=0.9), dict(temperature=1.3, top_k=40, top_p=0.8))
+
+
+def sampler_on_card(torch, logits, arch: str) -> None:
+    """The port's sampler on one served round's logits (the prefill's, on
+    the card): ``filter_logits`` gives the CPU's bits, and ``sample`` with
+    the same Gumbel noise (drawn on the CPU) the CPU's tokens; a draw from a
+    card generator gives in-vocabulary tokens."""
+    from repro_torch.serving.sampler import SamplerConfig, filter_logits, gumbel, sample
+    cpu = logits.cpu()
+    noise = gumbel(cpu.shape, torch.Generator().manual_seed(0))
+    rows, ok = [], True
+    for kw in SAMPLER_CONFIGS:
+        cfg = SamplerConfig(**kw)
+        same_bits = torch.equal(filter_logits(logits, cfg).cpu(), filter_logits(cpu, cfg))
+        card = sample(logits, None, cfg, noise=noise.to(logits.device)).cpu()
+        want = sample(cpu, None, cfg, noise=noise)
+        drawn = sample(logits, torch.Generator(device=logits.device).manual_seed(1), cfg)
+        rows.append({"config": kw, "filtered_bits_equal": same_bits,
+                     "tokens": card.tolist(), "tokens_equal_cpu": torch.equal(card, want),
+                     "card_generator_tokens": drawn.tolist()})
+        ok = ok and same_bits and torch.equal(card, want) and bool(
+            ((drawn >= 0) & (drawn < logits.shape[-1])).all())
+    emit({"phase": "sampler", "arch": arch, "logits": list(logits.shape), "configs": rows})
+    if not ok:
+        raise AssertionError(f"the sampler on the card disagrees with the CPU: {rows}")
 
 
 def time_xlstm_blocks(torch, pool):
@@ -2024,6 +2206,15 @@ def main() -> int:
     flash_rg_t = measure_flash(torch, gen, dev, peak, 4, 512, 10, 1, 256, window=2048)
     decode_t = measure_decode(torch, gen, dev, peak, 4, 28, 4, 544, 128, n_caches=16)
     decode_rg_t = measure_decode(torch, gen, dev, peak, 4, 10, 1, 544, 256, n_caches=48)
+    # qwen3-moe-30b-a3b and gemma3-12b: prefill, its local layers past their
+    # window, decode, and a wrapped 1024-slot ring (35 MB a cache, 4 rotate)
+    flash_q3_t = measure_flash(torch, gen, dev, peak, 4, 512, 32, 4, 128)
+    flash_g3_t = measure_flash(torch, gen, dev, peak, 4, 512, 16, 8, 256, window=1024)
+    flash_g3w_t = measure_flash(torch, gen, dev, peak, 1, 1536, 16, 8, 256, window=1024)
+    decode_q3_t = measure_decode(torch, gen, dev, peak, 4, 32, 4, 544, 128, n_caches=16)
+    decode_g3_t = measure_decode(torch, gen, dev, peak, 4, 16, 8, 544, 256, n_caches=8)
+    decode_g3r_t = measure_decode(torch, gen, dev, peak, 4, 16, 8, 1024, 256, n_caches=4,
+                                  cur=1535)
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
@@ -2052,23 +2243,31 @@ def main() -> int:
         check_small_model(torch, dev, cfg, S)
 
     launches = {}                               # kernel -> {run: launches}
-    for arch in ("qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b"):
+    for arch in ("qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b", "qwen3-moe-30b-a3b",
+                 "gemma3-12b"):
         for kernel, n in serve_reduced_defaults(torch, arch).items():
             if n:
                 launches.setdefault(kernel, {})[f"{arch}, reduced (launcher defaults)"] = n
-    for arch in ("qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b"):
+    for arch in ("qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b", "qwen3-moe-30b-a3b",
+                 "gemma3-12b"):
         served, report = serve_full_width(torch, arch)
         for kernel, n in served.items():
             if n:
                 launches.setdefault(kernel, {})[arch] = n
-        profile_serving(torch, report["pool"])
+        profiled = profile_serving(torch, report["pool"])
+        model = report["pool"].replicas[0].model
         if arch == "xlstm-1.3b":
             time_xlstm_blocks(torch, report["pool"])
-        del report                              # free the weights before the next
+        if model.cfg.moe is not None:
+            t = report["timings"][-1]
+            moe_decode_split(torch, model, peak, profiled["decode_step"],
+                             t["decode_s"] * 1e3 / (t["max_new"] - 1))
+            sampler_on_card(torch, profiled["prefill_logits"], arch)
+        del report, profiled, model             # free the weights before the next
         gc.collect()
         torch.cuda.empty_cache()
     train_runs = {f"train_reduced {arch} (3 steps)": train_reduced(torch, dev, arch)
-                  for arch in ("recurrentgemma-2b", "qwen2-7b")}
+                  for arch in ("recurrentgemma-2b", "qwen2-7b", "qwen3-moe-30b-a3b")}
     train_runs["train_launcher (4 + 2 + 6 steps)"] = train_launcher(
         torch, ROOT / "build" / "chip_smoke_train")
     train_runs["train_full_width recurrentgemma-2b (4 steps)"] = train_full_width(
@@ -2083,13 +2282,27 @@ def main() -> int:
                    flash_err[128], flash_t, launches["flash_attention"],
                    head_dim_256=shape_figures([4, 512, 10, 1, 256], flash_err[256],
                                               flash_rg_t),
-                   max_abs_err_head_dim_16_64=[flash_err[16], flash_err[64]]),
+                   max_abs_err_head_dim_16_64=[flash_err[16], flash_err[64]],
+                   qwen3_moe=shape_figures([4, 512, 32, 4, 128], flash_err[
+                       (4, 512, 32, 4, 128, 0)], flash_q3_t),
+                   gemma3=shape_figures([4, 512, 16, 8, 256, "window 1024"], flash_err[
+                       (4, 512, 16, 8, 256, 1024)], flash_g3_t),
+                   gemma3_past_window=shape_figures(
+                       [1, 1536, 16, 8, 256, "window 1024"],
+                       flash_err[(1, 1536, 16, 8, 256, 1024)], flash_g3w_t)),
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
                    decode_err[128], decode_t, launches["decode_attention"],
                    head_dim_256=shape_figures([4, 10, 1, 544, 256], decode_err[256],
                                               decode_rg_t),
-                   max_abs_err_head_dim_16_64=[decode_err[16], decode_err[64]]),
+                   max_abs_err_head_dim_16_64=[decode_err[16], decode_err[64]],
+                   qwen3_moe=shape_figures([4, 32, 4, 544, 128], decode_err[
+                       (4, 32, 4, 128, 544, 0)], decode_q3_t),
+                   gemma3=shape_figures([4, 16, 8, 544, 256, "window 1024"], decode_err[
+                       (4, 16, 8, 256, 544, 1024)], decode_g3_t),
+                   gemma3_wrapped_ring=shape_figures(
+                       [4, 16, 8, 1024, 256, "window 1024, position 1535"],
+                       decode_err[(4, 16, 8, 256, 1024, 1024)], decode_g3r_t)),
         kernel_row("mlstm_chunk", "src/repro_torch/kernels/mlstm_chunk/csrc/"
                    "mlstm_chunk.cu", "src/repro/kernels/mlstm_chunk/kernel.py:89",
                    mlstm_err, mlstm_t, launches["mlstm_chunk"]),

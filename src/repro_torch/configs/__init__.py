@@ -1,18 +1,28 @@
 """Architecture registry of the port: the archs it can run today.
 
-Dense (qwen2-7b, deepseek-7b), xLSTM (xlstm-1.3b) and RecurrentGemma
-(recurrentgemma-2b). The JAX package's other architectures (MoE, gemma3,
-multimodal) wait for later slices of the port; see ``ROADMAP.md``.
+Dense (qwen2-7b, deepseek-7b, mistral-large-123b), gemma3 (gemma3-12b:
+QK-norm, 5:1 local:global), VLM (chameleon-34b: QK-norm over token ids), MoE
+(qwen3-moe-30b-a3b with QK-norm, dbrx-132b), xLSTM (xlstm-1.3b) and
+RecurrentGemma (recurrentgemma-2b). The JAX package's musicgen-large
+(codebook heads, embedding inputs) waits for a later slice of the port; see
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
 from .base import ModelConfig, MoEConfig
+from .chameleon_34b import CONFIG as chameleon_34b
+from .dbrx_132b import CONFIG as dbrx_132b
 from .deepseek_7b import CONFIG as deepseek_7b
+from .gemma3_12b import CONFIG as gemma3_12b
+from .mistral_large_123b import CONFIG as mistral_large_123b
 from .qwen2_7b import CONFIG as qwen2_7b
+from .qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from .xlstm_1_3b import CONFIG as xlstm_1_3b
 
-ARCHS = {c.name: c for c in (deepseek_7b, qwen2_7b, recurrentgemma_2b, xlstm_1_3b)}
+ARCHS = {c.name: c for c in (chameleon_34b, dbrx_132b, deepseek_7b, gemma3_12b,
+                             mistral_large_123b, qwen2_7b, qwen3_moe_30b_a3b,
+                             recurrentgemma_2b, xlstm_1_3b)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -9,9 +9,18 @@ request trace, with the paper's autoscaler (counterpart of
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+        --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+        --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
 
-Runs on the card unless ``--device cpu``; ``--devices N`` caps the number of
-cards the pool may use (0 = all). Weights are random, drawn from ``--seed``:
+``--arch`` is any of ``repro_torch.configs.ARCHS``: deepseek-7b, qwen2-7b,
+mistral-large-123b, gemma3-12b, chameleon-34b, qwen3-moe-30b-a3b,
+dbrx-132b, xlstm-1.3b, recurrentgemma-2b. At published widths in bf16 one
+80 GB card holds qwen2-7b, deepseek-7b, xlstm-1.3b, recurrentgemma-2b,
+gemma3-12b (23.5 GB) and qwen3-moe-30b-a3b (61.1 GB); the others serve
+reduced only. Runs on the card unless ``--device cpu``; ``--devices N``
+caps the number of cards the pool may use (0 = all). Weights are random, drawn from ``--seed``:
 a reduced model's on the CPU and copied to the card, so that the default run
 serves the same tokens on the card as with ``--device cpu``; a model at its
 published widths on the card, where its billions of parameters are drawn in

@@ -12,7 +12,12 @@ training waits for ROADMAP.md, queue 1 item 4. A reduced model's weights
 are drawn on the CPU and copied to the card, so ``--device cpu`` starts
 from the same weights. The default arch, deepseek-7b at its published
 widths, does not fit one 80 GB card with its AdamW state and stops with
-CUDA's out-of-memory error; recurrentgemma-2b does fit.
+CUDA's out-of-memory error; recurrentgemma-2b does fit. Every arch of
+``repro_torch.configs.ARCHS`` trains reduced; for the MoE archs
+(qwen3-moe-30b-a3b, dbrx-132b) the loss adds the routers' auxiliary losses:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --arch qwen3-moe-30b-a3b --steps 4 --ckpt-dir "$(mktemp -d)"
 """
 from __future__ import annotations
 

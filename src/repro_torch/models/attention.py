@@ -6,6 +6,9 @@ attention through its ``decode_attention``: on the card each is a CUDA
 kernel, on the CPU its plain version. The cache layout is the JAX package's:
 ``k``/``v`` ``[B, L, K, hd]``, ``pos [L]`` int32 with -1 for an empty slot,
 position p in slot ``p % L`` (a ring buffer for sliding-window layers).
+With ``cfg.qk_norm`` each head's q and k go through an RMSNorm over
+``head_dim`` (``q_norm``, ``k_norm``) after the projections and before rope,
+in every mode.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import Dense, apply_rope
+from repro_torch.models.layers import Dense, RMSNorm, apply_rope
 
 Cache = Dict[str, torch.Tensor]
 
@@ -40,26 +43,34 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, window: int, theta: float,
                  dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError("qk_norm is not ported yet (ROADMAP.md, queue 1)")
         d = cfg.d_model
         self.cfg, self.window, self.theta = cfg, window, theta
         self.wq = Dense(d, cfg.q_dim, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.wk = Dense(d, cfg.kv_dim, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.wv = Dense(d, cfg.kv_dim, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.wo = Dense(cfg.q_dim, d, dtype=dtype, device=device)
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(cfg.head_dim, device=device)
+            self.k_norm = RMSNorm(cfg.head_dim, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for dense in (self.wq, self.wk, self.wv, self.wo):
             dense.reset_parameters(generator)
+        if self.q_norm is not None:
+            self.q_norm.reset_parameters()
+            self.k_norm.reset_parameters()
 
     def _project_qkv(self, x, positions):
-        """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,K,hd], rope applied."""
+        """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,K,hd]: QK-norm (if any), then
+        rope."""
         B, S, _ = x.shape
         cfg = self.cfg
         q = self.wq(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
         k = self.wk(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         v = self.wv(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
         return (apply_rope(q, positions, self.theta),
                 apply_rope(k, positions, self.theta), v)
 

@@ -1,22 +1,24 @@
 """Decoder-only causal LM of the port (counterpart of ``repro.models.model``).
 
-Ported block kinds: dense ``attn``/``local``, RecurrentGemma ``rglru`` and
-xLSTM ``mlstm``/``slstm``; also tied embeddings (the table as the head, the
-input scaled by √d) and the logit softcap. Layers are an ``nn.ModuleList``
-in depth order, where the JAX package scans over stacked pattern repeats;
-``repro_torch.convert`` maps one layout onto the other. Parameters carry no
-gradient, so serving records no graph; a training state
+Ported block kinds: dense ``attn``/``local`` (with QK-norm, and with the
+sort-based MoE in place of the MLP where ``cfg.moe`` is set), RecurrentGemma
+``rglru`` and xLSTM ``mlstm``/``slstm``; also tied embeddings (the table as
+the head, the input scaled by √d) and the logit softcap. Layers are an
+``nn.ModuleList`` in depth order, where the JAX package scans over stacked
+pattern repeats; ``repro_torch.convert`` maps one layout onto the other.
+Parameters carry no gradient, so serving records no graph; a training state
 (``repro_torch.training.train_step.init_state``) turns gradients on for its
 own model.
 
   forward      train mode: full sequence -> float32 logits of every position
+               and the MoE auxiliary losses summed over layers
   prefill      full prompt -> logits of the last position, filled caches
   decode_step  one token against the caches, which it updates in place
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, Cache, init_kv_cache
 from repro_torch.models.layers import MLP, Dense, Embedding, make_norm, softcap
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRUBlock, init_rglru_cache
 from repro_torch.models.xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
                                       init_slstm_cache)
@@ -39,7 +42,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         if kind not in _PORTED:
             raise ValueError(kind)
     unported = {
-        "moe": cfg.moe is not None,
         "num_codebooks": cfg.num_codebooks > 0,
         "input_mode=embeddings": cfg.input_mode != "tokens",
     }
@@ -56,10 +58,15 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
+Aux = Dict[str, torch.Tensor]
+
+
 class Block(nn.Module):
     """Pre-norm block (``apply_block``): the mixer (attention or the RG-LRU
-    branch) then a gated MLP for ``attn``/``local``/``rglru``; for
-    ``mlstm``/``slstm`` the mixer alone, ``x + mixer(pre_norm(x))``."""
+    branch) then a gated MLP for ``attn``/``local``/``rglru``, or the MoE
+    (``moe``, one token group as the JAX model's default ``moe_groups=1``)
+    for ``attn``/``local`` when ``cfg.moe`` is set; for ``mlstm``/``slstm``
+    the mixer alone, ``x + mixer(pre_norm(x))``."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -72,35 +79,43 @@ class Block(nn.Module):
         else:
             mixer = {"rglru": RGLRUBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}[kind]
             self.mixer = mixer(cfg, dtype=dtype, device=device)
-        self.mlp = None
-        if kind in _WITH_MLP:
+        self.mlp = self.moe = None
+        if kind in ("attn", "local") and cfg.moe is not None:
+            self.mlp_norm = make_norm(cfg.norm, cfg.d_model, device=device)
+            self.moe = MoE(cfg, dtype=dtype, device=device)
+        elif kind in _WITH_MLP:
             self.mlp_norm = make_norm(cfg.norm, cfg.d_model, device=device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.pre_norm.reset_parameters()
         self.mixer.reset_parameters(generator)
-        if self.mlp is not None:
-            self.mlp_norm.reset_parameters()
-            self.mlp.reset_parameters(generator)
+        for ffn in (self.mlp, self.moe):
+            if ffn is not None:
+                self.mlp_norm.reset_parameters()
+                ffn.reset_parameters(generator)
 
-    def forward(self, x):
-        """Train mode (``apply_block(mode="train")``): x [B,S,D] -> [B,S,D]."""
-        return self._finish(x, self.mixer(self.pre_norm(x)))
+    def forward(self, x) -> Tuple[torch.Tensor, Aux]:
+        """Train mode (``apply_block(mode="train")``): x [B,S,D] -> ([B,S,D],
+        the MoE's auxiliary losses, or {})."""
+        return self._finish(x, self.mixer(self.pre_norm(x)), with_aux=True)
 
-    def _finish(self, x, y):
+    def _finish(self, x, y, with_aux: bool) -> Tuple[torch.Tensor, Aux]:
         x = x + y
+        if self.moe is not None:
+            y2, aux = self.moe(self.mlp_norm(x), groups=1, with_aux=with_aux)
+            return x + y2, aux
         if self.mlp is None:
-            return x
-        return x + self.mlp(self.mlp_norm(x))
+            return x, {}
+        return x + self.mlp(self.mlp_norm(x)), {}
 
     def prefill(self, x, max_len: int):
         y, cache = self.mixer.prefill(self.pre_norm(x), max_len)
-        return self._finish(x, y), cache
+        return self._finish(x, y, with_aux=False)[0], cache
 
     def decode(self, x, cache: Cache, cur_pos: int):
         y, cache = self.mixer.decode(self.pre_norm(x), cache, cur_pos)
-        return self._finish(x, y), cache
+        return self._finish(x, y, with_aux=False)[0], cache
 
 
 class CausalLM(nn.Module):
@@ -147,11 +162,13 @@ class CausalLM(nn.Module):
         logits = self.embed.unembed(x) if self.head is None else self.head(x)
         return softcap(logits.float(), self.cfg.logit_softcap)
 
-    def _repeat(self, x, r: int):
+    def _repeat(self, x, r: int) -> Tuple[torch.Tensor, List[Aux]]:
         P = len(self.cfg.block_pattern)
+        auxs = []
         for block in self.layers[r * P:(r + 1) * P]:
-            x = block(x)
-        return x
+            x, aux = block(x)
+            auxs.append(aux)
+        return x, auxs
 
     def forward(self, tokens: torch.Tensor, *, remat: str = "none"):
         """Train-mode forward (``repro.models.model.forward``): tokens [B, S]
@@ -159,17 +176,26 @@ class CausalLM(nn.Module):
         runs each pattern repetition, and each tail layer, under
         non-reentrant activation checkpointing (``jax.checkpoint`` of the
         scan body): its activations are recomputed in the backward pass, so
-        its kernels launch twice a step. aux is empty (no MoE in the port)."""
+        its kernels launch twice a step. aux holds ``moe_lb`` and ``moe_z``
+        summed over the layers in depth order when ``cfg.moe`` is set, and
+        is empty otherwise."""
         x = self._embed_in(tokens)
         P = len(self.cfg.block_pattern)
         reps = self.cfg.num_layers // P
         ckpt = remat != "none"
+        auxs: List[Aux] = []
         for r in range(reps):
-            x = (checkpoint(self._repeat, x, r, use_reentrant=False) if ckpt
-                 else self._repeat(x, r))
+            x, a = (checkpoint(self._repeat, x, r, use_reentrant=False) if ckpt
+                    else self._repeat(x, r))
+            auxs.extend(a)
         for block in self.layers[reps * P:]:
-            x = checkpoint(block, x, use_reentrant=False) if ckpt else block(x)
-        return self._head_out(x), {}
+            x, a = checkpoint(block, x, use_reentrant=False) if ckpt else block(x)
+            auxs.append(a)
+        total: Aux = {}
+        for a in auxs:
+            for k, v in a.items():
+                total[k] = total[k] + v if k in total else v
+        return self._head_out(x), total
 
 
 def jax_leaf(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
@@ -193,8 +219,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights drawn on ``device`` (the card unless ``"cpu"``) as
     ``repro.models.model.init_params`` draws them: dense kernels normal·1/√in,
     embedding normal·0.02 (both drawn in float32, stored in ``param_dtype``),
-    zero biases, RMSNorm scales zero, LayerNorm scales one; the xLSTM blocks'
-    own leaves as their ``reset_parameters`` say."""
+    zero biases, RMSNorm scales zero (QK-norm's too), LayerNorm scales one;
+    the MoE's router (float32) and expert leaves, and the xLSTM blocks' own
+    leaves, as their ``reset_parameters`` say."""
     model = CausalLM(cfg, device=device)
     with torch.no_grad():
         model.embed.reset_parameters(generator)

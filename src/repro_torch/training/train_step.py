@@ -5,8 +5,9 @@ The state's model is the port's ``CausalLM`` with gradients turned on; its
 float32 optimizer state is keyed by parameter name. The step runs where the
 model's parameters are: on the card the model's attention and RG-LRU layers
 go through the flash-attention and scan kernels forward and backward.
-MoE auxiliary losses are not carried over: MoE is not ported
-(``CausalLM`` raises for it).
+Where ``cfg.moe`` is set the loss adds the MoE's auxiliary losses, summed
+over the layers by the model's ``forward``: ``MOE_LB_COEF`` times the
+load-balance loss and ``MOE_Z_COEF`` times the router z-loss.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from repro_torch.models import model as M
 from repro_torch.training.optimizer import OptState, adamw_update, init_opt_state
 
 Batch = Dict[str, torch.Tensor]
+
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 0.001
 
 
 class TrainState(NamedTuple):
@@ -58,8 +62,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss_coef: float
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     def loss_fn(model: M.CausalLM, batch: Batch):
-        logits, _ = model(batch["tokens"], remat=tcfg.remat)
+        logits, aux = model(batch["tokens"], remat=tcfg.remat)
         loss, nll = cross_entropy(logits, batch["labels"], tcfg.z_loss)
+        if cfg.moe is not None:
+            loss = loss + MOE_LB_COEF * aux["moe_lb"] + MOE_Z_COEF * aux["moe_z"]
         return loss, {"nll": nll}
     return loss_fn
 

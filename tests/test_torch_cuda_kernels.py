@@ -220,6 +220,90 @@ def test_decode_kernel_head_dim_256_matches_plain(cuda, B, H, K, L, win, fill, d
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,win", [
+    (4, 512, 32, 4, 128, 0),        # qwen3-moe-30b-a3b prefill: group 8
+    (2, 300, 32, 4, 128, 0),
+    (4, 512, 16, 8, 256, 1024),     # gemma3-12b prefill, a local layer (window > S)
+    (4, 512, 16, 8, 256, 0),        # gemma3-12b, a global layer
+    (1, 1536, 16, 8, 256, 1024),    # gemma3-12b local layer past its window
+    (1, 1100, 16, 8, 256, 1024),
+])
+def test_flash_kernel_at_the_new_archs_shapes_matches_plain(cuda, B, S, H, K, hd, win, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn(cuda, B, S, H, hd, dtype=dtype)
+    k = _randn(cuda, B, S, K, hd, dtype=dtype)
+    v = _randn(cuda, B, S, K, hd, dtype=dtype)
+    out = ops.flash_attention(q, k, v, window=win)
+    ref = ops.flash_attention_reference(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,hd,L,win,cur", [
+    (4, 32, 4, 128, 544, 0, 543),       # qwen3-moe-30b-a3b decode, last step
+    (4, 32, 4, 128, 544, 0, 512),       # first step
+    (4, 16, 8, 256, 544, 1024, 543),    # gemma3-12b decode, a local layer
+    (4, 16, 8, 256, 544, 0, 512),       # a global layer
+    (4, 16, 8, 256, 1024, 1024, 1535),  # the local layers' 1024-slot ring, wrapped
+    (1, 16, 8, 256, 1024, 1024, 3000),
+])
+def test_decode_kernel_at_the_new_archs_shapes_matches_plain(cuda, B, H, K, hd, L, win,
+                                                             cur, dtype):
+    """Slots hold positions as the model's cache does: p in slot p % L for
+    the last min(L, cur + 1) positions, -1 elsewhere."""
+    from repro_torch.kernels.decode_attention import ops
+    q, ck, cv = _decode_case(cuda, B, H, K, hd, L, dtype)
+    slot = torch.arange(L, device="cuda")
+    newest = cur - (cur - slot) % L                     # the position each slot holds
+    sp = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    out = ops.decode_attention(q, ck, cv, sp, cur, window=win)
+    ref = ops.decode_attention_reference(q, ck, cv, sp, cur, window=win)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def test_moe_on_the_card_is_the_same_bits_every_call_and_matches_the_cpu(cuda):
+    """The MoE (plain PyTorch) at a dropping capacity: bf16 output bit-equal
+    across calls on the card (the combine sums in a fixed order, no
+    atomics); float32 output within 1e-5 of the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE
+    cfg = get_config("qwen3-moe-30b-a3b").with_(d_model=256)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, num_experts=16, top_k=4,
+                                            d_ff_expert=64, capacity_factor=1.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = MoE(cfg, dtype=dtype, device="cpu")
+        with torch.no_grad():
+            cpu.reset_parameters(torch.Generator().manual_seed(0))
+        card = MoE(cfg, dtype=dtype, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        x = torch.randn(4, 96, 256, generator=torch.Generator().manual_seed(1)).to(dtype)
+        with torch.no_grad():
+            a, _ = card(x.cuda())
+            b, _ = card(x.cuda())
+            want, _ = cpu(x)
+        assert torch.equal(a, b)
+        if dtype == torch.float32:
+            assert (a.cpu() - want).abs().max().item() < 1e-5
+
+
+def test_sampler_filters_on_the_card_as_on_the_cpu(cuda):
+    """filter_logits gives the CPU's bits on the card, and sample with the
+    same noise the same tokens."""
+    from repro_torch.serving.sampler import SamplerConfig, filter_logits, gumbel, sample
+    logits = torch.randn(4, 151936, generator=torch.Generator().manual_seed(2)) * 4
+    noise = gumbel(logits.shape, torch.Generator().manual_seed(3))
+    for kw in (dict(greedy=True), dict(), dict(temperature=0.7), dict(top_k=50),
+               dict(top_p=0.9), dict(temperature=1.3, top_k=40, top_p=0.8)):
+        cfg = SamplerConfig(**kw)
+        assert torch.equal(filter_logits(logits.cuda(), cfg).cpu(), filter_logits(logits, cfg))
+        assert torch.equal(sample(logits.cuda(), None, cfg, noise=noise.cuda()).cpu(),
+                           sample(logits, None, cfg, noise=noise))
+
+
 def _decode_case(gen, B, H, K, hd, L, dtype):
     return (_randn(gen, B, H, hd, dtype=dtype), _randn(gen, B, L, K, hd, dtype=dtype),
             _randn(gen, B, L, K, hd, dtype=dtype))
@@ -498,7 +582,8 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
         mlstm_chunk(*odd)                                       # 200-byte v rows
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b",
+                                  "qwen3-moe-30b-a3b", "gemma3-12b"])
 def test_launcher_defaults_serve_on_the_card(cuda, arch, monkeypatch):
     """``python -m repro_torch.launch.serve`` with its defaults: the card, a
     reduced float32 model (head_dim 16). Every attention, mLSTM and scan call

@@ -19,7 +19,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "qwen3-moe-30b-a3b",
+                                  "gemma3-12b-window"])
 def test_serving_pool_tokens_match_jax(arch):
     jcfg, tcfg = configs(arch)
     params = jax_params(jcfg, seed=7)
@@ -74,6 +75,18 @@ def test_serve_cli_serves_recurrentgemma_on_cpu():
     cfg = report["cfg"]
     assert cfg.tie_embeddings and 20 > cfg.window_size and report["rounds"] == 2
     assert report["pool"].model.head is None
+    assert all(len(r.done) == 4 and (0 <= r.done).all() and (r.done < cfg.vocab_size).all()
+               for r in report["completed"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma3-12b", "dbrx-132b",
+                                  "chameleon-34b", "mistral-large-123b"])
+def test_serve_cli_serves_the_new_archs_on_cpu(arch):
+    report = serve.run(["--device", "cpu", "--arch", arch, "--requests", "3",
+                        "--max-batch", "2", "--prompt-len", "20", "--max-new", "4"])
+    cfg = report["cfg"]
+    assert cfg.name == arch and report["rounds"] == 2
+    assert (cfg.moe is not None) == (report["pool"].model.layers[0].moe is not None)
     assert all(len(r.done) == 4 and (0 <= r.done).all() and (r.done < cfg.vocab_size).all()
                for r in report["completed"])
 

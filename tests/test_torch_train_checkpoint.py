@@ -188,3 +188,18 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert straight[-1] == resumed[-1]
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         launcher.main(argv + ["--devices", "2"])
+
+
+def test_launcher_trains_the_moe_arch(tmp_path, capsys):
+    """``--reduced --arch qwen3-moe-30b-a3b`` trains on the CPU: finite losses
+    that include the routers' auxiliary losses (loss - nll above the z-loss
+    term alone)."""
+    assert launcher.main(["--reduced", "--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
+                          "--batch", "2", "--seq", "16", "--steps", "2",
+                          "--ckpt-dir", str(tmp_path / "ck"),
+                          "--log", str(tmp_path / "log.json")]) == 0
+    assert "arch=qwen3-moe-30b-a3b devices=1 start_step=0" in capsys.readouterr().out
+    log = json.load(open(tmp_path / "log.json"))
+    assert [m["step"] for m in log] == [2]
+    m = log[-1]
+    assert np.isfinite(m["loss"]) and m["loss"] - m["nll"] > 0.01

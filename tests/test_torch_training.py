@@ -1,5 +1,6 @@
 """Port parity for training: the port's train step vs ``repro.training`` on
-the CPU.
+the CPU (reduced recurrentgemma-2b, qwen2-7b, and qwen3-moe-30b-a3b with its
+MoE auxiliary losses).
 
 Both start from the JAX ``init_state(PRNGKey(0))`` (carried across with
 ``convert.state_from_jax``) and take three steps on the same
@@ -56,6 +57,8 @@ VARIANTS = {  # name -> (arch, TrainConfig kwargs, dtype, tolerance)
     "recurrentgemma-2b-microbatch2": ("recurrentgemma-2b", {"microbatch": 2}, None, "float32"),
     "qwen2-7b-int8": ("qwen2-7b", {"grad_compression": "int8"}, None, "int8"),
     "qwen2-7b-bf16": ("qwen2-7b", {}, "bfloat16", "bfloat16"),
+    # the MoE's auxiliary losses in the loss (MOE_LB_COEF, MOE_Z_COEF), QK-norm
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}, None, "float32"),
 }
 
 
