@@ -36,7 +36,8 @@ Phases, each of which fails the run on any error:
    (``eager_ms``). Flash and decode are timed also at qwen3-moe-30b-a3b's
    and gemma3-12b's serving shapes (``qwen3_moe``, ``gemma3``), flash past
    gemma3's window (SDPA with the same boolean mask) and decode on its
-   wrapped ring. The scan is timed also at recurrentgemma-2b's training
+   wrapped ring, and both at musicgen-large's (``musicgen``: 32 heads over
+   32 kv heads at hd 64). The scan is timed also at recurrentgemma-2b's training
    shape [1, 3072, 2560] (``training_shape``). The decode row names its
    split plan and grid size; the decode kernel is also built with its phase
    clocks and each phase's share of a block's cycles printed at both
@@ -45,20 +46,38 @@ Phases, each of which fails the run on any error:
    xLSTM-shaped model (dqk 128, dv 256), a 5-layer RecurrentGemma-shaped
    model (head_dim 256, 10 heads over 1 kv head, window 16 < S), a 2-layer
    qwen3-moe-shaped model (QK-norm, group 8, an MoE whose prefill drops
-   pairs) and a 6-layer gemma3-shaped model (QK-norm, hd 256, group 2,
-   window 16 < S, local theta) in float32 serve the same prompts on the
-   card and on the CPU; logits and greedy tokens must agree, and the MoE
-   model's prefill must give the same bits on a second call;
+   pairs), a 6-layer gemma3-shaped model (QK-norm, hd 256, group 2,
+   window 16 < S, local theta) and a 2-layer musicgen-shaped model
+   (embedding inputs, four codebook heads, hd 64, group 1; served through
+   the engine) in float32 serve the same prompts on the card and on the
+   CPU; logits and greedy tokens must agree, and the MoE model's prefill
+   must give the same bits on a second call;
 4. serving: ``repro_torch.launch.serve`` first with its defaults (the card,
    reduced float32 models at head_dim 16: qwen2-7b, recurrentgemma-2b,
    xlstm-1.3b, qwen3-moe-30b-a3b and gemma3-12b, 32 requests each), whose
    greedy tokens must equal the same run's with ``--device cpu``; then 8
    requests of qwen2-7b, xlstm-1.3b, recurrentgemma-2b, qwen3-moe-30b-a3b
    and gemma3-12b at their published widths (random bf16 weights from a
-   seed) on cuda:0, one model at a time. Before each run every launch counter is zeroed,
-   and the plain attention, mLSTM and scan versions are made to raise until
-   it ends, so each run proves that every attention, mLSTM or RG-LRU
-   prefill call went through the kernels;
+   seed) on cuda:0, one model at a time; then ``serve musicgen-large`` at
+   its published widths through the engine (a prefill of [4, 512, 2048]
+   bf16 frames, 31 decode steps on ``decode_inputs``; every token of the
+   [4, 32, 4] output in [0, 2048); peak memory, prefill ms and decode ms a
+   step of a counted and a second round, and its profile). Before each run
+   every launch counter is zeroed, and the plain attention, mLSTM and scan
+   versions are made to raise until it ends, so each run proves that every
+   attention, mLSTM or RG-LRU prefill call went through the kernels;
+   ``orchestrator``: the runtime orchestrator on ``DevicePool()`` (the
+   card) over the one-card scenario (a WS spike, ``start()``, zero load
+   (the idle card reflows to the trainer, which starts), 2 train steps, a
+   second spike that gets nothing, the card failing and repaired (one
+   resize), 2 more steps, zero load), its WS department a recurrentgemma-2b
+   ``ServingPool`` at published widths serving 8 requests of 512 + 32
+   through ``pool.submit`` while it holds the card, its HPC department the
+   train launcher's reduced recurrentgemma-2b ``ElasticTrainer``; the
+   events must equal a stub run's, the losses an uninterrupted trainer's
+   bit for bit, the launches the serve's and the 4 steps' exactly, and
+   ``repro_torch.trace validate`` must accept the trace; each tick's wall
+   and the peak memory are printed;
 5. profile: ``torch.profiler`` over one prefill and eight decode steps of
    each served model: kernel time by name (the top eight and every kernel of
    the port) and the device's idle share; for xlstm-1.3b also the wall time
@@ -113,8 +132,10 @@ Phases, each of which fails the run on any error:
    with the same mask; the scan at both recurrentgemma-2b shapes with its
    plan, blocks, blocks an SM, resident clusters and shared bytes);
    ``train_reduced``: three steps of the train launcher's reduced
-   recurrentgemma-2b, qwen2-7b and qwen3-moe-30b-a3b (its loss with the
-   MoE's auxiliary losses) on the card against the same steps on the CPU; ``train_launcher``: ``python -m repro_torch.launch.train
+   recurrentgemma-2b, qwen2-7b, qwen3-moe-30b-a3b (its loss with the
+   MoE's auxiliary losses) and musicgen-large (embeddings in, codebook
+   labels) on the card against the same steps on the CPU;
+   ``train_launcher``: ``python -m repro_torch.launch.train
    --reduced --arch recurrentgemma-2b`` for 4 steps, resumed to 6, against
    an uninterrupted 6; ``train_full_width``: recurrentgemma-2b at its
    published widths through ``ElasticTrainer.train_steps``, 4 steps of 1 ×
@@ -124,7 +145,9 @@ Phases, each of which fails the run on any error:
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` (seven rows: flash, decode, mLSTM,
 scan, queue core, flash backward, scan backward; the forward rows'
-``launches_by_run`` also count the training runs) and ``{"ok": true,
+``launches_by_run`` also count the training runs, the orchestrator phase
+and musicgen-large's serve; flash and decode carry a ``musicgen``
+sub-object) and ``{"ok": true,
 "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository checkout.
@@ -753,10 +776,38 @@ def shape_figures(shape, err, figures):
     return {"shape": shape, "max_abs_err": err, **figures}
 
 
+def serve_frames(torch, model, frames, max_new: int):
+    """Greedy serve of an embeddings arch through the engine, as the JAX
+    package serves one (its replicas feed token ids): a prefill on frames
+    [B, S, D], then ``max_new - 1`` decode steps on ``decode_inputs`` (the JAX
+    engine's zero frames). Returns (tokens [B, max_new, C] as numpy, prefill
+    s, decode s), host clock after a synchronize."""
+    from repro_torch.device import synchronize
+    from repro_torch.serving.engine import decode_inputs, make_decode_fn, make_prefill_fn
+    cfg, dev = model.cfg, model.device
+    B, S = frames.shape[:2]
+    decode = make_decode_fn(cfg)
+    step_in = decode_inputs(cfg, B, device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        tok, caches = make_prefill_fn(cfg, max_len=S + max_new)(model, frames)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        toks = [tok]
+        for i in range(max_new - 1):
+            tok, caches = decode(model, caches, step_in, S + i)
+            toks.append(tok)
+        out = torch.stack(toks, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+    return out, t1 - t0, t2 - t1
+
+
 def check_small_model(torch, dev, cfg, S: int):
-    """A small float32 model: prefill logits and greedy tokens, card vs CPU.
-    For an MoE model also the pairs its prefill dropped on the card (some
-    must drop) and a second prefill's logits, which must be the same bits."""
+    """A small float32 model: prefill logits and greedy tokens, card vs CPU
+    (token archs through a ``ServingPool``, an embeddings arch through the
+    engine, ``serve_frames``). For an MoE model also the pairs its prefill
+    dropped on the card (some must drop) and a second prefill's logits, which
+    must be the same bits."""
     import numpy as np
     from repro_torch.models import model as M
     from repro_torch.models import moe
@@ -767,13 +818,18 @@ def check_small_model(torch, dev, cfg, S: int):
         for name, p in cpu_model.named_parameters():
             if name.endswith(("bias", "scale", "conv_b")):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.3 + 0.1)
-    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, S),
-                                               dtype=np.int32)
+    rng = np.random.default_rng(3)
+    embeds = cfg.input_mode == "embeddings"
+    if embeds:
+        prompt = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+        inputs = torch.from_numpy(prompt)
+    else:
+        prompt = rng.integers(0, cfg.vocab_size, (2, S), dtype=np.int32)
+        inputs = torch.from_numpy(prompt).long()
     gpu_model = cpu_model.copy_to(dev)
     with torch.inference_mode():
-        tokens = torch.from_numpy(prompt).long()
-        want, _ = M.prefill(cpu_model, tokens, max_len=S + 8)
-        got, _ = M.prefill(gpu_model, tokens.to(dev), max_len=S + 8)
+        want, _ = M.prefill(cpu_model, inputs, max_len=S + 8)
+        got, _ = M.prefill(gpu_model, inputs.to(dev), max_len=S + 8)
     err = max_err(torch, got.cpu(), want)
     moe_record, moe_ok = {}, True
     if cfg.moe is not None:
@@ -787,7 +843,7 @@ def check_small_model(torch, dev, cfg, S: int):
         moe.dispatch = counted
         try:
             with torch.inference_mode():
-                again, _ = M.prefill(gpu_model, tokens.to(dev), max_len=S + 8)
+                again, _ = M.prefill(gpu_model, inputs.to(dev), max_len=S + 8)
         finally:
             moe.dispatch = dispatch
         moe_record = {"moe_pairs_dropped_by_layer": dropped,
@@ -795,15 +851,19 @@ def check_small_model(torch, dev, cfg, S: int):
         moe_ok = sum(dropped) > 0 and moe_record["moe_second_call_bit_equal"]
     toks = {}
     for d, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        if embeds:
+            toks[d] = serve_frames(torch, model, inputs.to(model.device), 8)[0]
+            continue
         pool = ServingPool(cfg, model)
         pool.scale_to([dev if d == "cuda" else "cpu"])
         toks[d] = pool.submit(prompt, 8)
     same = bool((toks["cpu"] == toks["cuda"]).all())
+    shape = (2, 8, cfg.num_codebooks) if cfg.num_codebooks else (2, 8)
     emit({"phase": "small_model", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "prompt": [2, S], "prefill_logits_max_abs_err": err,
-          "tol": 1e-3, "greedy_tokens_identical": same, "shape": list(toks["cuda"].shape),
-          **moe_record})
-    if not (err < 1e-3 and same and toks["cuda"].shape == (2, 8) and moe_ok):
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim, "prompt": list(prompt.shape),
+          "prefill_logits_max_abs_err": err, "tol": 1e-3, "greedy_tokens_identical": same,
+          "shape": list(toks["cuda"].shape), **moe_record})
+    if not (err < 1e-3 and same and toks["cuda"].shape == shape and moe_ok):
         raise AssertionError(f"{cfg.name}: port on the card disagrees with the CPU path")
 
 
@@ -816,7 +876,8 @@ def small_configs():
     give an expert 24 slots for 20 pairs on average, so some drop) and
     gemma3-shaped (QK-norm, head_dim 256, 16 heads over 8, 5 local layers
     at theta 10k with window 16 < S and a global one, tied embeddings, gelu)
-    float32 models, small enough for the CPU."""
+    and musicgen-shaped (embedding inputs, four codebook heads, head_dim 64,
+    group 1, LayerNorm, gelu) float32 models, small enough for the CPU."""
     from repro_torch.configs import MoEConfig, get_config
     f32 = dict(param_dtype="float32", compute_dtype="float32", vocab_size=1024)
     return [(get_config("qwen2-7b").with_(num_layers=2, d_model=256, d_ff=512, **f32), 40),
@@ -829,7 +890,9 @@ def small_configs():
                 num_layers=2, d_model=256, moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=64,
                                                          capacity_factor=1.0), **f32), 40),
             (get_config("gemma3-12b").with_(num_layers=6, d_model=256, d_ff=512,
-                                            window_size=16, **f32), 40)]
+                                            window_size=16, **f32), 40),
+            (get_config("musicgen-large").with_(num_layers=2, d_model=256, num_heads=4,
+                                                num_kv_heads=4, d_ff=512, **f32), 40)]
 
 
 PLAIN_VERSIONS = {  # wrapper module, plain version a CPU tensor takes
@@ -949,6 +1012,224 @@ def serve_reduced_defaults(torch, arch: str):
     return launches
 
 
+def serve_musicgen(torch, dev) -> dict:
+    """musicgen-large at its published widths (bf16 weights drawn on the card
+    from seed 0) served through the engine (``serve_frames``): a prefill of
+    [4, 512, 2048] bf16 frames from a seeded generator, then 31 decode steps
+    on ``decode_inputs``. Counted (``counted_on_card``: flash once a layer,
+    decode once a layer a step, the plain versions raising); every token of
+    the [4, 32, 4] output must lie in [0, 2048). A second, uncounted round
+    gives warm prefill and decode times; then one prefill and 8 decode steps
+    are profiled (``profile_serving``). Returns the launches and the model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("musicgen-large")
+    B, S, new = 4, 512, 32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn(B, S, cfg.d_model, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(1)).bfloat16()
+    launches, rounds = {}, []
+    with counted_on_card(launches):
+        toks, prefill_s, decode_s = serve_frames(torch, model, frames, new)
+    rounds.append((prefill_s, decode_s))
+    again, prefill_s, decode_s = serve_frames(torch, model, frames, new)
+    rounds.append((prefill_s, decode_s))
+    n_attn = cfg.num_layers
+    want = {name: 0 for name in PLAIN_VERSIONS}
+    want.update({"flash_attention": n_attn, "decode_attention": n_attn * (new - 1)})
+    in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    record = {"phase": "serve musicgen-large", "arch": cfg.name, "d_model": cfg.d_model,
+              "layers": cfg.num_layers, "params": sum(p.numel() for p in model.parameters()),
+              "frames": [B, S, cfg.d_model], "dtype": str(frames.dtype),
+              "tokens_shape": list(toks.shape), "tokens_in_range": in_range,
+              "second_round_same_tokens": bool((again == toks).all()),
+              "prefill_ms_by_round": [r[0] * 1e3 for r in rounds],
+              "decode_ms_per_step_by_round": [r[1] * 1e3 / (new - 1) for r in rounds],
+              "init_s": init_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "expected_launches": want}
+    emit(record)
+    if not (toks.shape == (B, new, cfg.num_codebooks) and in_range and launches == want):
+        raise AssertionError(f"musicgen-large serve failed: {record}")
+    profiled = profile_serving(torch, model)
+    if profiled["prefill_logits"].shape != (B, cfg.num_codebooks, cfg.vocab_size):
+        raise AssertionError(f"musicgen-large logits {profiled['prefill_logits'].shape}")
+    return launches
+
+
+class StubTrainer:
+    """Duck-typed ElasticTrainer for the orchestrator's reference run."""
+    model_size, global_batch, step = 1, 8, 0
+
+    def start(self, devices):
+        pass
+
+    def resize(self, devices):
+        pass
+
+    def train_steps(self, n):
+        self.step += n
+        return {"step": self.step}
+
+
+class StubPool:
+    """Duck-typed ServingPool for the orchestrator's reference run."""
+
+    def __init__(self):
+        self.replicas = []
+
+    def scale_to(self, devices):
+        self.replicas = list(devices)
+
+
+SPIKE = ("latency_tick_slo", "ws", 5.0, 0.35, 1.0)
+QUIET = ("latency_tick_slo", "ws", 0.0, 0.35, 1.0)
+ONE_CARD_TICKS = [SPIKE, ("start",), QUIET, ("train_steps", "hpc", 2), SPIKE,
+                  ("fail_node",), ("repair_node",), ("train_steps", "hpc", 2), QUIET]
+
+
+def one_card_orchestrator(devices, pool, trainer, tracer):
+    """The one-card scenario's departments: ``ws`` (latency, priority 0,
+    an SLO autoscaler at 2 s with n_min 0 and n_max 1, so it gives the card
+    back when its load falls to zero) and ``hpc`` (batch, priority 1, one
+    device at least), policy ``paper``; ``devices`` None takes
+    ``DevicePool()``'s, every CUDA device."""
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.runtime.orchestrator import MultiTenantOrchestrator
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads.autoscaler import SLOAutoscaler
+    orch = MultiTenantOrchestrator(devices=devices, policy="paper", tracer=tracer)
+    orch.add_latency("ws", pool, priority=0, slo_autoscaler=SLOAutoscaler(
+        ServiceTimeModel(), SLOConfig(latency_target_s=2.0), n_min=0, n_max=1))
+    orch.add_batch("hpc", trainer, priority=1, min_devices=1)
+    return orch
+
+
+def orchestrator_phase(torch, out_dir: Path) -> dict:
+    """The runtime orchestrator on ``DevicePool()`` (every CUDA device: the
+    card) with real port workloads, over the one-card scenario's ticks: a WS
+    spike, ``start()``, the load falling to zero (the idle card reflows to
+    the trainer, which starts), 2 train steps, a second spike (no card to
+    give: the trainer is at its floor), the card failing and repaired (the
+    repair re-grants it: one resize), 2 more train steps, zero load again.
+    ``ws`` is a ``ServingPool`` of recurrentgemma-2b at its published widths
+    (bf16 weights drawn on the card from seed 0); while the card is its own
+    it serves 8 requests of 512 + 32 tokens, batch 4, through
+    ``pool.submit``, and the p99 of their latencies is fed back by
+    ``observe_latency``. ``hpc`` is an ``ElasticTrainer`` of the train
+    launcher's reduced recurrentgemma-2b (its defaults: batch 8 x 128,
+    weights drawn on the CPU) checkpointing into ``out_dir``. Counted
+    (``counted_on_card``), plain versions raising. Fails unless the events
+    equal the same ticks through the orchestrator with stub workloads, the
+    trainer was started by the reflow and resized once, its losses equal an
+    uninterrupted trainer's bit for bit, the pools check after every tick
+    and ``python -m repro_torch.trace validate`` accepts the trace."""
+    import shutil
+    import numpy as np
+    from repro_torch import trace
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.telemetry import Tracer, percentile
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models import model as M
+    from repro_torch.runtime.device_pool import cuda_devices
+    from repro_torch.runtime.elastic import ElasticTrainer
+    from repro_torch.runtime.serving_pool import ServingPool
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    stub = one_card_orchestrator(["cuda:0"], StubPool(), StubTrainer(), Tracer())
+    for op in ONE_CARD_TICKS:
+        getattr(stub, op[0])(*op[1:])
+
+    args = build_parser().parse_args([])
+    tcfg = TrainConfig()
+    train_cfg = reduced_config(get_config("recurrentgemma-2b"))
+
+    def trainer(name):
+        return ElasticTrainer(train_cfg, tcfg, global_batch=args.batch, seq_len=args.seq,
+                              ckpt_dir=str(out_dir / name), init_device="cpu",
+                              data_fn=SyntheticLM(train_cfg, seed=0).data_fn)
+
+    serve_cfg = get_config("recurrentgemma-2b")
+    torch.cuda.reset_peak_memory_stats()
+    dev = cuda_devices()[0]                    # what DevicePool() takes
+    model = M.init_params(serve_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    pool, hpc, tracer = ServingPool(serve_cfg, model), trainer("elastic"), Tracer()
+    orch = one_card_orchestrator(None, pool, hpc, tracer)
+    prompts = np.random.default_rng(0).integers(0, serve_cfg.vocab_size, (8, 512),
+                                                dtype=np.int32)
+    ticks, served, started_at, p99, launches = [], [], None, None, {}
+    with counted_on_card(launches):
+        for i, op in enumerate(ONE_CARD_TICKS):
+            t0 = time.perf_counter()
+            getattr(orch, op[0])(*op[1:])
+            torch.cuda.synchronize()
+            ticks.append({"tick": op[0], "args": list(op[2:]), "wall_ms":
+                          (time.perf_counter() - t0) * 1e3,
+                          "ws": len(orch.devs.groups["ws"]), "hpc": len(orch.devs.groups["hpc"])})
+            orch.devs.check()
+            orch.svc.check()
+            if started_at is None and hpc.state is not None:
+                started_at = i
+            if op[0] == "start":          # the card is the WS department's
+                if [r.device for r in pool.replicas] != [dev] or hpc.state is not None:
+                    raise AssertionError("the WS department does not hold the card")
+                t0 = time.perf_counter()
+                served = [pool.submit(prompts[j:j + 4], 32) for j in (0, 4)]
+                ticks[-1]["serve_ms"] = (time.perf_counter() - t0) * 1e3
+                lat = sorted(t["prefill_s"] + t["decode_s"] for t in pool.timings)
+                p99 = percentile(lat, 99.0)
+                orch.observe_latency("ws", p99)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    straight = trainer("straight")
+    straight.start([dev])
+    for _ in range(2):
+        straight.train_steps(2)
+    path = out_dir / "orchestrator.trace.jsonl"
+    tracer.to_jsonl(str(path))
+    rc, out = quiet(trace.main, ["validate", str(path)])
+    kinds = serve_cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    want = train_launches(train_cfg, 4, tcfg.remat != "none")
+    want["flash_attention"] += 2 * n_attn
+    want["decode_attention"] += 2 * n_attn * 31
+    want["rglru_scan"] += 2 * kinds.count("rglru")
+    tokens_ok = all(t.shape == (4, 32) and (t >= 0).all() and (t < serve_cfg.vocab_size).all()
+                    for t in served)
+    record = {"phase": "orchestrator", "policy": "paper", "devices": [str(d) for d in
+                                                                      orch.devs.devices],
+              "serve": {"arch": serve_cfg.name, "requests": 8, "prompt_len": 512,
+                        "max_new": 32, "batch": 4, "tokens_ok": tokens_ok,
+                        "timings_ms": [{k: v * 1e3 for k, v in t.items() if k.endswith("_s")}
+                                       for t in pool.timings],
+                        "p99_latency_s_observed": p99},
+              "train": {"arch": train_cfg.name, "batch": [args.batch, args.seq],
+                        "started_at_tick": started_at, "resizes": hpc.resizes,
+                        "metrics": hpc.metrics_log,
+                        "equal_to_uninterrupted": hpc.metrics_log == straight.metrics_log},
+              "ticks": ticks, "events": orch.events, "stub_events": stub.events,
+              "trace_events": len(tracer.events), "trace_validate_rc": rc,
+              "trace_validate": out.strip().splitlines()[-1:],
+              "max_memory_allocated_bytes": peak, "launches": launches,
+              "expected_launches": want}
+    emit(record)
+    ok = (orch.events == stub.events and started_at == 2 and hpc.resizes == 1
+          and record["train"]["equal_to_uninterrupted"] and len(hpc.metrics_log) == 2
+          and rc == 0 and tokens_ok and launches == want and orch.devs.total == 1)
+    if not ok:
+        raise AssertionError(f"orchestrator phase failed: {record}")
+    del orch, pool, model, hpc, straight        # free the weights before later phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 PORT_KERNELS = (r"flash_(tc|cc)_kernel|flash_bwd_\w+_kernel|decode_split_kernel|"
                 r"mlstm_\w+_kernel|rglru_scan(_bwd)?_kernel")
 GEMM_KERNELS = r"nvjet|gemm|cutlass|xmma"
@@ -974,18 +1255,27 @@ def _device_breakdown(torch, prof, wall_s: float, steps: int) -> dict:
             "port_kernels": [row(e) for e in port]}
 
 
-def profile_serving(torch, pool) -> dict:
+def profile_serving(torch, model) -> dict:
     """torch.profiler over one prefill and 8 decode steps of the served model
-    (batch 4, prompt 512), after the counted main path. Returns the decode
-    step's breakdown and the profiled prefill's logits [4, V] (on the card)."""
+    (batch 4, prompt 512; an embeddings arch takes seeded frames [4, 512, D]
+    and then ``decode_inputs``), after the counted main path. Returns the
+    decode step's breakdown and the profiled prefill's logits [4, V] (or
+    [4, C, V]; on the card)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
-    model = pool.replicas[0].model
-    dev = model.device
+    from repro_torch.serving.engine import decode_inputs
+    cfg, dev = model.cfg, model.device
     S, steps = 512, 8
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, model.cfg.vocab_size, (4, S))).to(dev)
+    if cfg.input_mode == "embeddings":
+        tokens = torch.randn(4, S, cfg.d_model, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1)).to(model.compute_dtype)
+        step_in = decode_inputs(cfg, 4, device=dev)
+        next_in = lambda tok: step_in  # noqa: E731
+    else:
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, S))).to(dev)
+        next_in = lambda tok: tok[:, None]  # noqa: E731
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
         M.prefill(model, tokens, max_len=S + steps)               # warm-up
@@ -1001,7 +1291,7 @@ def profile_serving(torch, pool) -> dict:
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
-                logits, caches = M.decode_step(model, caches, tok[:, None], S + i)
+                logits, caches = M.decode_step(model, caches, next_in(tok), S + i)
                 tok = logits.argmax(-1)
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
@@ -2215,6 +2505,10 @@ def main() -> int:
     decode_g3_t = measure_decode(torch, gen, dev, peak, 4, 16, 8, 544, 256, n_caches=8)
     decode_g3r_t = measure_decode(torch, gen, dev, peak, 4, 16, 8, 1024, 256, n_caches=4,
                                   cur=1535)
+    # musicgen-large: 32 heads over 32 kv heads at hd 64 (8.9 MB a cache,
+    # 16 rotate)
+    flash_mg_t = measure_flash(torch, gen, dev, peak, 4, 512, 32, 32, 64)
+    decode_mg_t = measure_decode(torch, gen, dev, peak, 4, 32, 32, 544, 64, n_caches=16)
     decode_phases()
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
@@ -2254,8 +2548,8 @@ def main() -> int:
         for kernel, n in served.items():
             if n:
                 launches.setdefault(kernel, {})[arch] = n
-        profiled = profile_serving(torch, report["pool"])
         model = report["pool"].replicas[0].model
+        profiled = profile_serving(torch, model)
         if arch == "xlstm-1.3b":
             time_xlstm_blocks(torch, report["pool"])
         if model.cfg.moe is not None:
@@ -2266,8 +2560,18 @@ def main() -> int:
         del report, profiled, model             # free the weights before the next
         gc.collect()
         torch.cuda.empty_cache()
+    for kernel, n in serve_musicgen(torch, dev).items():
+        if n:
+            launches.setdefault(kernel, {})["musicgen-large (engine)"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kernel, n in orchestrator_phase(torch, ROOT / "build" / "chip_smoke_orchestrator").items():
+        if n:
+            launches.setdefault(kernel, {})[
+                "orchestrator: recurrentgemma-2b serve + reduced trainer (4 steps)"] = n
     train_runs = {f"train_reduced {arch} (3 steps)": train_reduced(torch, dev, arch)
-                  for arch in ("recurrentgemma-2b", "qwen2-7b", "qwen3-moe-30b-a3b")}
+                  for arch in ("recurrentgemma-2b", "qwen2-7b", "qwen3-moe-30b-a3b",
+                               "musicgen-large")}
     train_runs["train_launcher (4 + 2 + 6 steps)"] = train_launcher(
         torch, ROOT / "build" / "chip_smoke_train")
     train_runs["train_full_width recurrentgemma-2b (4 steps)"] = train_full_width(
@@ -2289,7 +2593,9 @@ def main() -> int:
                        (4, 512, 16, 8, 256, 1024)], flash_g3_t),
                    gemma3_past_window=shape_figures(
                        [1, 1536, 16, 8, 256, "window 1024"],
-                       flash_err[(1, 1536, 16, 8, 256, 1024)], flash_g3w_t)),
+                       flash_err[(1, 1536, 16, 8, 256, 1024)], flash_g3w_t),
+                   musicgen=shape_figures([4, 512, 32, 32, 64], flash_err[
+                       (4, 512, 32, 32, 64, 0)], flash_mg_t)),
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
                    decode_err[128], decode_t, launches["decode_attention"],
@@ -2302,7 +2608,9 @@ def main() -> int:
                        (4, 16, 8, 256, 544, 1024)], decode_g3_t),
                    gemma3_wrapped_ring=shape_figures(
                        [4, 16, 8, 1024, 256, "window 1024, position 1535"],
-                       decode_err[(4, 16, 8, 256, 1024, 1024)], decode_g3r_t)),
+                       decode_err[(4, 16, 8, 256, 1024, 1024)], decode_g3r_t),
+                   musicgen=shape_figures([4, 32, 32, 544, 64], decode_err[
+                       (4, 32, 32, 64, 544, 0)], decode_mg_t)),
         kernel_row("mlstm_chunk", "src/repro_torch/kernels/mlstm_chunk/csrc/"
                    "mlstm_chunk.cu", "src/repro/kernels/mlstm_chunk/kernel.py:89",
                    mlstm_err, mlstm_t, launches["mlstm_chunk"]),

@@ -2,10 +2,9 @@
 
 Dense (qwen2-7b, deepseek-7b, mistral-large-123b), gemma3 (gemma3-12b:
 QK-norm, 5:1 local:global), VLM (chameleon-34b: QK-norm over token ids), MoE
-(qwen3-moe-30b-a3b with QK-norm, dbrx-132b), xLSTM (xlstm-1.3b) and
-RecurrentGemma (recurrentgemma-2b). The JAX package's musicgen-large
-(codebook heads, embedding inputs) waits for a later slice of the port; see
-``ROADMAP.md``.
+(qwen3-moe-30b-a3b with QK-norm, dbrx-132b), xLSTM (xlstm-1.3b),
+RecurrentGemma (recurrentgemma-2b) and audio (musicgen-large: per-frame
+embedding inputs, four codebook heads): the JAX package's ten archs.
 """
 from __future__ import annotations
 
@@ -15,22 +14,21 @@ from .dbrx_132b import CONFIG as dbrx_132b
 from .deepseek_7b import CONFIG as deepseek_7b
 from .gemma3_12b import CONFIG as gemma3_12b
 from .mistral_large_123b import CONFIG as mistral_large_123b
+from .musicgen_large import CONFIG as musicgen_large
 from .qwen2_7b import CONFIG as qwen2_7b
 from .qwen3_moe_30b_a3b import CONFIG as qwen3_moe_30b_a3b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from .xlstm_1_3b import CONFIG as xlstm_1_3b
 
 ARCHS = {c.name: c for c in (chameleon_34b, dbrx_132b, deepseek_7b, gemma3_12b,
-                             mistral_large_123b, qwen2_7b, qwen3_moe_30b_a3b,
-                             recurrentgemma_2b, xlstm_1_3b)}
+                             mistral_large_123b, musicgen_large, qwen2_7b,
+                             qwen3_moe_30b_a3b, recurrentgemma_2b, xlstm_1_3b)}
 
 
 def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
     if key not in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}); "
-            "see ROADMAP.md, queue 1")
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[key]
 
 

@@ -11,7 +11,7 @@ Every architecture is a ``ModelConfig``: a decoder-only stack whose per-layer
   ``slstm``  sLSTM block (scalar memory, sequential recurrence), self-contained
 
 The fields are those of the JAX package, so a config converts field by field;
-the port's model raises on the features it does not run yet.
+the port's model raises ``ValueError`` on a block kind it does not know.
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ The JAX model stacks each pattern position's parameters along a leading
 ``repeat`` axis (``params["repeats"]["b{j}"]``) and keeps the depth remainder
 in ``params["tail"]["t{j}"]``; the port has one module per layer. Leaf names
 match the port's parameter names (``mixer.wq.kernel`` ...), and kernels keep
-their ``[in, out]`` orientation, so leaves are copied as they are. Inputs are
-numpy arrays (``jax.device_get`` of the pytree); nothing here imports JAX.
+their ``[in, out]`` orientation, so leaves are copied as they are (a codebook
+head ``[d, C·V]`` and an embeddings arch's unused ``embed`` table too). Inputs
+are numpy arrays (``jax.device_get`` of the pytree); nothing here imports JAX.
 
 Both directions: ``params_from_jax`` / ``params_to_jax`` for weights,
 ``state_from_jax`` / ``state_to_jax`` for a whole ``TrainState`` (params,

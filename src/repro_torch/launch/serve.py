@@ -14,12 +14,18 @@ request trace, with the paper's autoscaler (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
         --no-reduced --requests 8 --prompt-len 512 --max-new 32 --max-batch 4
 
-``--arch`` is any of ``repro_torch.configs.ARCHS``: deepseek-7b, qwen2-7b,
-mistral-large-123b, gemma3-12b, chameleon-34b, qwen3-moe-30b-a3b,
-dbrx-132b, xlstm-1.3b, recurrentgemma-2b. At published widths in bf16 one
-80 GB card holds qwen2-7b, deepseek-7b, xlstm-1.3b, recurrentgemma-2b,
-gemma3-12b (23.5 GB) and qwen3-moe-30b-a3b (61.1 GB); the others serve
-reduced only. Runs on the card unless ``--device cpu``; ``--devices N``
+``--arch`` is any of ``repro_torch.configs.ARCHS`` that takes token ids:
+deepseek-7b, qwen2-7b, mistral-large-123b, gemma3-12b, chameleon-34b,
+qwen3-moe-30b-a3b, dbrx-132b, xlstm-1.3b, recurrentgemma-2b.
+musicgen-large takes per-frame embeddings, which ``Replica.generate``'s
+token prompts cannot feed (nor can the JAX launcher's): ``--arch
+musicgen-large`` raises ``ValueError`` before any weight is drawn. Serve
+it through the engine, ``repro_torch.serving.engine.make_prefill_fn`` on
+``[B, S, D]`` embeddings, then ``make_decode_fn`` on ``decode_inputs``.
+
+At published widths in bf16 one 80 GB card holds qwen2-7b, deepseek-7b,
+xlstm-1.3b, recurrentgemma-2b, gemma3-12b (23.5 GB) and qwen3-moe-30b-a3b
+(61.1 GB); the others serve reduced only. Runs on the card unless ``--device cpu``; ``--devices N``
 caps the number of cards the pool may use (0 = all). Weights are random, drawn from ``--seed``:
 a reduced model's on the CPU and copied to the card, so that the default run
 serves the same tokens on the card as with ``--device cpu``; a model at its
@@ -68,12 +74,17 @@ def run(argv=None) -> dict:
     from repro_torch.runtime.serving_pool import ServingPool
     from repro_torch.serving.batching import ContinuousBatcher, Request
 
+    cfg = get_config(args.arch)
+    cfg = reduced_config(cfg) if args.reduced else cfg
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes {cfg.input_mode} inputs, which the replicas' token "
+            "prompts cannot feed: serve it through repro_torch.serving.engine "
+            "(make_prefill_fn on [B, S, D] embeddings, make_decode_fn on decode_inputs)")
     if args.device == "cpu":
         devices = [torch.device("cpu")]
     else:
         devices = DevicePool().devices[:args.devices or None]
-    cfg = get_config(args.arch)
-    cfg = reduced_config(cfg) if args.reduced else cfg
     init_on = torch.device("cpu") if args.reduced else devices[0]
     model = M.init_params(cfg, torch.Generator(device=init_on).manual_seed(args.seed),
                           init_on)

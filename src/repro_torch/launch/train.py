@@ -18,6 +18,13 @@ CUDA's out-of-memory error; recurrentgemma-2b does fit. Every arch of
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --arch qwen3-moe-30b-a3b --steps 4 --ckpt-dir "$(mktemp -d)"
+
+musicgen-large trains on ``SyntheticLM``'s per-frame embeddings [B, S, D]
+and labels [B, S, 4], one per codebook head; reduced only here (at its
+published widths its ~52 GB of AdamW state is a later item of ROADMAP.md):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --arch musicgen-large --steps 4 --ckpt-dir "$(mktemp -d)"
 """
 from __future__ import annotations
 

@@ -3,8 +3,11 @@
 Ported block kinds: dense ``attn``/``local`` (with QK-norm, and with the
 sort-based MoE in place of the MLP where ``cfg.moe`` is set), RecurrentGemma
 ``rglru`` and xLSTM ``mlstm``/``slstm``; also tied embeddings (the table as
-the head, the input scaled by √d) and the logit softcap. Layers are an
-``nn.ModuleList`` in depth order, where the JAX package scans over stacked
+the head, the input scaled by √d), the logit softcap, and musicgen-large's
+embedding inputs (``input_mode="embeddings"``: the input is a float
+``[B, S, D]`` taken as it is, no table lookup) and codebook heads
+(``num_codebooks`` C > 0: one ``Dense(d, C·V)``, logits ``[..., C, V]``).
+Layers are an ``nn.ModuleList`` in depth order, where the JAX package scans over stacked
 pattern repeats; ``repro_torch.convert`` maps one layout onto the other.
 Parameters carry no gradient, so serving records no graph; a training state
 (``repro_torch.training.train_step.init_state``) turns gradients on for its
@@ -14,6 +17,9 @@ own model.
                and the MoE auxiliary losses summed over layers
   prefill      full prompt -> logits of the last position, filled caches
   decode_step  one token against the caches, which it updates in place
+
+Each takes token ids ``[B, S]`` (``[B, 1]`` a decode step), or for an
+embeddings arch float inputs ``[B, S, D]`` (``[B, 1, D]``).
 """
 from __future__ import annotations
 
@@ -41,15 +47,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.layer_kinds():
         if kind not in _PORTED:
             raise ValueError(kind)
-    unported = {
-        "num_codebooks": cfg.num_codebooks > 0,
-        "input_mode=embeddings": cfg.input_mode != "tokens",
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            "(ROADMAP.md, queue 1: other model families)")
 
 
 def _theta(cfg: ModelConfig, kind: str) -> float:
@@ -121,7 +118,10 @@ class Block(nn.Module):
 class CausalLM(nn.Module):
     """Parameters are allocated uninitialised, on ``device`` (the card unless
     ``"cpu"``); see ``init_params``. With ``tie_embeddings`` there is no
-    ``head``: the logits are ``x @ embed.table.T``."""
+    ``head``: the logits are ``x @ embed.table.T``. With codebooks the head
+    is ``[d, C·V]`` (whatever ``tie_embeddings``), and an embeddings arch
+    still has the ``embed`` table, unused, as the JAX ``init_params`` draws
+    it and a checkpoint carries it."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -136,8 +136,9 @@ class CausalLM(nn.Module):
             Block(kind, cfg, dtype=dtype, device=device)
             for kind in cfg.layer_kinds())
         self.final_norm = make_norm(cfg.norm, cfg.d_model, device=device)
-        self.head = None if cfg.tie_embeddings else Dense(
-            cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
+        out = cfg.vocab_size * max(cfg.num_codebooks, 1)
+        self.head = None if cfg.tie_embeddings and not cfg.num_codebooks else Dense(
+            cfg.d_model, out, dtype=dtype, device=device)
         # the input scale √d, rounded to the compute dtype first (50.5 in bf16
         # for d 2560), as JAX multiplies by a compute-dtype scalar
         self.embed_scale = torch.tensor(math.sqrt(cfg.d_model),
@@ -153,13 +154,18 @@ class CausalLM(nn.Module):
         other.load_state_dict(self.state_dict())
         return other
 
-    def _embed_in(self, tokens):
-        x = self.embed(tokens, self.compute_dtype)
+    def _embed_in(self, inputs):
+        if self.cfg.input_mode == "embeddings":
+            x = inputs.to(self.compute_dtype)
+        else:
+            x = self.embed(inputs, self.compute_dtype)
         return x * self.embed_scale if self.cfg.tie_embeddings else x
 
     def _head_out(self, x):
         x = self.final_norm(x)
         logits = self.embed.unembed(x) if self.head is None else self.head(x)
+        if self.cfg.num_codebooks:
+            logits = logits.unflatten(-1, (self.cfg.num_codebooks, self.cfg.vocab_size))
         return softcap(logits.float(), self.cfg.logit_softcap)
 
     def _repeat(self, x, r: int) -> Tuple[torch.Tensor, List[Aux]]:
@@ -172,7 +178,8 @@ class CausalLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *, remat: str = "none"):
         """Train-mode forward (``repro.models.model.forward``): tokens [B, S]
-        -> (float32 logits [B, S, V], aux). ``remat`` other than ``"none"``
+        (or embeddings [B, S, D]) -> (float32 logits [B, S, V] (or
+        [B, S, C, V]), aux). ``remat`` other than ``"none"``
         runs each pattern repetition, and each tail layer, under
         non-reentrant activation checkpointing (``jax.checkpoint`` of the
         scan body): its activations are recomputed in the backward pass, so
@@ -255,7 +262,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def prefill(model: CausalLM, tokens: torch.Tensor, *,
             max_len: int = 0) -> Tuple[torch.Tensor, List[Cache]]:
-    """tokens [B, S] -> (float32 logits of the last position [B, V], caches)."""
+    """tokens [B, S] (or embeddings [B, S, D]) -> (float32 logits of the
+    last position [B, V] (or [B, C, V]), caches)."""
     x = model._embed_in(tokens)
     caches = []
     for block in model.layers:
@@ -266,8 +274,9 @@ def prefill(model: CausalLM, tokens: torch.Tensor, *,
 
 def decode_step(model: CausalLM, caches: List[Cache], tokens: torch.Tensor,
                 cur_pos: int) -> Tuple[torch.Tensor, List[Cache]]:
-    """tokens [B, 1] at position ``cur_pos`` (uniform over the batch) ->
-    (float32 logits [B, V], caches). The caches are updated in place."""
+    """tokens [B, 1] (or embeddings [B, 1, D]) at position ``cur_pos``
+    (uniform over the batch) -> (float32 logits [B, V] (or [B, C, V]),
+    caches). The caches are updated in place."""
     x = model._embed_in(tokens)
     for block, cache in zip(model.layers, caches):
         x, _ = block.decode(x, cache, cur_pos)

@@ -1,1 +1,2 @@
-"""Runtime: device pool and serving replicas."""
+"""Runtime: device pool, serving replicas, the elastic trainer and the
+orchestrator that drives them under the provision service's policies."""

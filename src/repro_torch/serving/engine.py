@@ -1,5 +1,6 @@
 """Serving steps: prefill and single-token decode against the KV caches
-(counterpart of ``repro.serving.engine``), greedy next token."""
+(counterpart of ``repro.serving.engine``), greedy next token: ``[B]``, or
+``[B, C]`` for a codebook arch (the argmax over the last axis)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -25,5 +26,10 @@ def make_decode_fn(cfg: ModelConfig) -> Callable:
 
 
 def decode_inputs(cfg: ModelConfig, batch: int, *, device=None) -> torch.Tensor:
-    """Token inputs [B, 1] for one decode step."""
+    """Inputs of one decode step, zeros: token ids [B, 1], or for an
+    embeddings arch stub embeddings [B, 1, D] in the compute dtype (the JAX
+    engine's stub for the frontend that would embed the last codes)."""
+    if cfg.input_mode == "embeddings":
+        return torch.zeros((batch, 1, cfg.d_model), dtype=getattr(torch, cfg.compute_dtype),
+                           device=device)
     return torch.zeros((batch, 1), dtype=torch.long, device=device)

@@ -7,7 +7,9 @@ model's parameters are: on the card the model's attention and RG-LRU layers
 go through the flash-attention and scan kernels forward and backward.
 Where ``cfg.moe`` is set the loss adds the MoE's auxiliary losses, summed
 over the layers by the model's ``forward``: ``MOE_LB_COEF`` times the
-load-balance loss and ``MOE_Z_COEF`` times the router z-loss.
+load-balance loss and ``MOE_Z_COEF`` times the router z-loss. An embeddings
+arch (musicgen-large) reads ``batch["embeds"]`` [B, S, D] in place of
+``batch["tokens"]``; its codebook logits [B, S, C, V] take labels [B, S, C].
 """
 from __future__ import annotations
 
@@ -60,9 +62,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss_coef: float
     return nll + z_loss_coef * zl, nll
 
 
+def _input_of(batch: Batch, cfg: ModelConfig) -> torch.Tensor:
+    return batch["embeds"] if cfg.input_mode == "embeddings" else batch["tokens"]
+
+
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     def loss_fn(model: M.CausalLM, batch: Batch):
-        logits, aux = model(batch["tokens"], remat=tcfg.remat)
+        logits, aux = model(_input_of(batch, cfg), remat=tcfg.remat)
         loss, nll = cross_entropy(logits, batch["labels"], tcfg.z_loss)
         if cfg.moe is not None:
             loss = loss + MOE_LB_COEF * aux["moe_lb"] + MOE_Z_COEF * aux["moe_z"]

@@ -1,6 +1,8 @@
 """Port parity: the port's model vs repro.models.model on reduced configs
 (dense qwen2/deepseek/mistral-large, gemma3 and chameleon with QK-norm, the
-MoE archs qwen3-moe (QK-norm too) and dbrx, xLSTM and RecurrentGemma).
+MoE archs qwen3-moe (QK-norm too) and dbrx, xLSTM, RecurrentGemma, and
+musicgen-large: embedding inputs [B, S, D] and four codebook heads, logits
+[..., 4, V], greedy tokens [B, 4]).
 
 Weights come from the JAX ``init_params``, with every bias, norm scale,
 ``conv_b``, ``rg_conv_b`` and ``out_scale`` overwritten by random non-zero
@@ -53,7 +55,7 @@ ARCH_VARIANTS = {  # arch -> its own suffix -> config changes (or cfg -> changes
     },
 }
 NEW_ARCHS = ["qwen3-moe-30b-a3b", "dbrx-132b", "gemma3-12b", "chameleon-34b",
-             "mistral-large-123b"]
+             "mistral-large-123b", "musicgen-large"]
 
 
 def configs(arch: str):
@@ -87,6 +89,18 @@ def jax_params(cfg, seed: int):
     return jax.tree_util.tree_map_with_path(fill, params)
 
 
+def model_inputs(cfg, rng, B: int, S: int) -> np.ndarray:
+    """Token ids [B, S] int32, or for an embeddings arch per-frame
+    embeddings [B, S, D] float32 (standard normal)."""
+    if cfg.input_mode == "embeddings":
+        return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+
+
+def port_inputs(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(arr) if arr.dtype == np.float32 else torch.from_numpy(arr).long()
+
+
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-7b", "xlstm-1.3b",
                                   "recurrentgemma-2b", *NEW_ARCHS, "gemma3-12b-window",
                                   "qwen3-moe-30b-a3b-drop"])
@@ -110,12 +124,11 @@ def test_prefill_cache_and_decode_match_jax(arch):
     model = params_from_jax(params, tcfg, device="cpu")
     jparams = jax.tree.map(jnp.asarray, params)
     B, S, steps = 2, 12, 4
-    prompt = np.random.default_rng(5).integers(0, jcfg.vocab_size, (B, S),
-                                               dtype=np.int32)
+    rng = np.random.default_rng(5)
+    prompt = model_inputs(jcfg, rng, B, S)
     max_len = S + steps
     with torch.inference_mode():
-        t_logits, t_cache = TM.prefill(model, torch.from_numpy(prompt).long(),
-                                       max_len=max_len)
+        t_logits, t_cache = TM.prefill(model, port_inputs(prompt), max_len=max_len)
     j_logits, j_cache = JM.prefill(jparams, jnp.asarray(prompt), jcfg,
                                    max_len=max_len)
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=ATOL)
@@ -133,14 +146,17 @@ def test_prefill_cache_and_decode_match_jax(arch):
         else:
             np.testing.assert_allclose(leaf, ref, atol=ATOL)
 
-    tok = np.argmax(np.asarray(j_logits), axis=-1)
+    tok = np.argmax(np.asarray(j_logits), axis=-1)       # [B], or [B, C]
+    assert tok.shape == ((B, jcfg.num_codebooks) if jcfg.num_codebooks else (B,))
     assert np.array_equal(t_logits.argmax(-1).numpy(), tok)
     for i in range(steps):
+        # an embeddings arch takes fresh frames: its tokens are codes of the
+        # four codebooks, which a frontend (not ported, as in JAX) embeds
+        step_in = (model_inputs(jcfg, rng, B, 1) if jcfg.input_mode == "embeddings"
+                   else tok[:, None])
         with torch.inference_mode():
-            t_logits, t_cache = TM.decode_step(
-                model, t_cache, torch.from_numpy(tok[:, None]).long(), S + i)
-        j_logits, j_cache = JM.decode_step(jparams, j_cache,
-                                           jnp.asarray(tok[:, None]),
+            t_logits, t_cache = TM.decode_step(model, t_cache, port_inputs(step_in), S + i)
+        j_logits, j_cache = JM.decode_step(jparams, j_cache, jnp.asarray(step_in),
                                            jnp.int32(S + i), jcfg)
         np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                    atol=ATOL)
@@ -148,12 +164,30 @@ def test_prefill_cache_and_decode_match_jax(arch):
         assert np.array_equal(t_logits.argmax(-1).numpy(), tok)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-7b", "musicgen-large"])
+def test_train_forward_matches_jax(arch):
+    """The train-mode forward's logits at every position: [B, S, V], or
+    [B, S, 4, V] from musicgen-large's embeddings."""
+    jcfg, tcfg = configs(arch)
+    params = jax_params(jcfg, seed=4)
+    model = params_from_jax(params, tcfg, device="cpu")
+    x = model_inputs(jcfg, np.random.default_rng(6), 2, 10)
+    want, _ = JM.forward(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jcfg)
+    with torch.no_grad():
+        got, aux = model(port_inputs(x))
+    assert got.shape == want.shape and aux == {}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
 def test_unported_archs_and_blocks_raise():
-    """musicgen-large, codebook heads and embedding inputs still raise; QK-norm
-    and the MoE, which used to, now build and run on the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_config("musicgen-large")
-    assert len(TC.ARCHS) == 9 and "musicgen-large" not in TC.ARCHS
+    """Every arch of the JAX package is ported: musicgen-large, codebook heads
+    and embedding inputs, QK-norm and the MoE, which used to raise, build and
+    run on the CPU. An unknown arch (KeyError, as in JAX) and an unknown
+    block kind (ValueError) still raise, and so does a model with no device
+    named when there is no card."""
+    assert len(TC.ARCHS) == 10 and set(TC.ARCHS) == set(JC.ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        TC.get_config("musicgen-small")
     cfg = TC.reduced_config(TC.get_config("qwen2-7b"))
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for built in (cfg.with_(qk_norm=True), cfg.with_(moe=TC.MoEConfig(4, 2, 32))):
@@ -161,10 +195,18 @@ def test_unported_archs_and_blocks_raise():
         logits, aux = model(tokens)
         assert logits.shape == (1, 4, cfg.vocab_size) and torch.isfinite(logits).all()
         assert set(aux) == ({"moe_lb", "moe_z"} if built.moe else set())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.CausalLM(cfg.with_(num_codebooks=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.CausalLM(cfg.with_(input_mode="embeddings"), device="cpu")
+    frames = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    for built, x, shape in (
+            (cfg.with_(num_codebooks=4), tokens, (1, 4, 4, cfg.vocab_size)),
+            (cfg.with_(input_mode="embeddings"), frames, (1, 4, cfg.vocab_size)),
+            (TC.reduced_config(TC.get_config("musicgen-large")), frames,
+             (1, 4, 4, cfg.vocab_size))):
+        model = TM.init_params(built, torch.Generator().manual_seed(1), "cpu")
+        logits, aux = model(x)
+        assert logits.shape == shape and torch.isfinite(logits).all() and aux == {}
+        heads = max(built.num_codebooks, 1)
+        assert model.head.kernel.shape == (cfg.d_model, heads * cfg.vocab_size)
+        assert model.embed.table.shape == (cfg.vocab_size, cfg.d_model)
     with pytest.raises(ValueError):
         TM.CausalLM(cfg.with_(block_pattern=("mamba", "attn")), device="cpu")
     if not torch.cuda.is_available():       # no device named: the card, or raise
@@ -177,7 +219,7 @@ def test_unported_archs_and_blocks_raise():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-1.3b", "recurrentgemma-2b",
-                                  "qwen3-moe-30b-a3b", "gemma3-12b"])
+                                  "qwen3-moe-30b-a3b", "gemma3-12b", "musicgen-large"])
 def test_init_params_draws_the_jax_distributions(arch):
     """Leaf by leaf: constant leaves (zero biases, conv_b and rg_conv_b, norm
     scales, out_scale) equal JAX's; random leaves have JAX's std within 15 %

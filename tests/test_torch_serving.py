@@ -130,3 +130,71 @@ def test_desired_replicas_follows_80_percent_rule():
     pool = TorchPool(tcfg, None, capacity_tokens_per_replica=100.0)
     assert pool.desired_replicas(81.0) == 2
     assert pool.desired_replicas(80.0) == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "musicgen-large"])
+@pytest.mark.parametrize("reduced", [True, False])
+def test_decode_inputs_match_jax(arch, reduced):
+    """One decode step's stub inputs: token ids [B, 1], or for musicgen-large
+    zeros [B, 1, D] in the compute dtype (float32 reduced, bfloat16 at its
+    published widths), as the JAX engine's ``decode_inputs``. The port's
+    token ids are int64 (torch indexes with them), JAX's int32."""
+    from repro import configs as JC
+    from repro.serving.engine import decode_inputs as jax_decode_inputs
+    from repro_torch import configs as TC
+    from repro_torch.serving.engine import decode_inputs
+    jcfg, tcfg = JC.ARCHS[arch], TC.get_config(arch)
+    if reduced:
+        jcfg, tcfg = JC.reduced_config(jcfg), TC.reduced_config(tcfg)
+    want = np.asarray(jax_decode_inputs(jcfg, 3))
+    got = decode_inputs(tcfg, 3, device="cpu")
+    assert tuple(got.shape) == want.shape and not got.any() and not want.any()
+    if tcfg.input_mode == "embeddings":
+        assert want.shape == (3, 1, tcfg.d_model)
+        assert str(got.dtype) == f"torch.{want.dtype}" == f"torch.{tcfg.compute_dtype}"
+    else:
+        assert want.shape == (3, 1) and got.dtype == torch.long and want.dtype == np.int32
+
+
+def test_engine_serves_musicgen_codebooks_like_jax():
+    """The engine's greedy steps on reduced musicgen-large: a prefill of
+    [2, 9, D] embeddings, then decode steps on ``decode_inputs`` (the JAX
+    engine's stub frames); every step's tokens are [B, 4], one per codebook,
+    and equal the JAX engine's."""
+    import jax.numpy as jnp
+    from repro.serving import engine as JE
+    from repro_torch.serving import engine as TE
+    jcfg, tcfg = configs("musicgen-large")
+    params = jax_params(jcfg, seed=9)
+    model = params_from_jax(params, tcfg, device="cpu")
+    jparams = jax.tree.map(jnp.asarray, params)
+    x = np.random.default_rng(14).standard_normal((2, 9, jcfg.d_model)).astype(np.float32)
+    want, jcache = JE.make_prefill_fn(jcfg, max_len=13)(jparams, jnp.asarray(x))
+    with torch.inference_mode():
+        got, cache = TE.make_prefill_fn(tcfg, max_len=13)(model, torch.from_numpy(x))
+    steps = [(got.numpy(), np.asarray(want))]
+    jdecode, tdecode = JE.make_decode_fn(jcfg), TE.make_decode_fn(tcfg)
+    for i in range(3):
+        want, jcache = jdecode(jparams, jcache, JE.decode_inputs(jcfg, 2), jnp.int32(9 + i))
+        with torch.inference_mode():
+            got, cache = tdecode(model, cache, TE.decode_inputs(tcfg, 2, device="cpu"), 9 + i)
+        steps.append((got.numpy(), np.asarray(want)))
+    for got, want in steps:
+        assert got.shape == want.shape == (2, 4)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_serve_cli_refuses_an_embeddings_arch_before_drawing_weights(monkeypatch):
+    """``--arch musicgen-large``: its replicas would feed token ids to an
+    embeddings model, so the launcher raises ValueError naming the engine
+    path, before any weight is drawn (on the card or the CPU)."""
+    from repro_torch.models import model as M
+
+    def no_weights(*args, **kwargs):
+        raise AssertionError("weights drawn")
+
+    monkeypatch.setattr(M, "init_params", no_weights)
+    for argv in (["--arch", "musicgen-large"], ["--arch", "musicgen-large", "--device", "cpu"],
+                 ["--arch", "musicgen-large", "--no-reduced"]):
+        with pytest.raises(ValueError, match="repro_torch.serving.engine"):
+            serve.run(argv)

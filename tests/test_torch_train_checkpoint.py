@@ -96,6 +96,56 @@ def test_port_checkpoint_restores_into_jax(tmp_path, cfgs, jax_run):
     assert {k: float(v) for k, v in m.items()} == want
 
 
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_musicgen_checkpoints_round_trip_both_ways(tmp_path, direction):
+    """Reduced musicgen-large after one JAX step: its codebook head ([d, 4V])
+    and its unused embedding table, with their moments, cross in either
+    direction bit for bit, and the next step on the other side gives the
+    JAX step's metrics (the port's at the float32 tolerance)."""
+    jcfg = JC.reduced_config(JC.ARCHS["musicgen-large"])
+    tcfg = TC.reduced_config(TC.get_config("musicgen-large"))
+    step = jax.jit(JS.make_train_step(jcfg, JTrainConfig()))
+    data = JSyntheticLM(jcfg, seed=0)
+    state, _ = step(JS.init_state(jax.random.PRNGKey(0), jcfg), data.batch(0, B, S))
+    _, m = step(state, data.batch(1, B, S))
+    state, want = jax.device_get(state), {k: float(v) for k, v in m.items()}
+    assert state.params["head"]["kernel"].shape == (64, 4 * 256)
+    if direction == "jax_to_port":
+        jckpt.save(str(tmp_path), state, step=1)
+        port = convert.state_from_leaves(ckpt.restore(str(tmp_path)), tcfg, "cpu")
+        back = convert.state_to_jax(port)
+        jax.tree.map(np.testing.assert_array_equal, back["params"], state.params)
+        for name in ("m", "v", "master"):
+            jax.tree.map(np.testing.assert_array_equal, back["opt"][name],
+                         getattr(state.opt, name))
+        _, got = _port_step(tcfg, port, 1)
+        for k in want:
+            assert abs(got[k] - want[k]) <= TOL * max(1.0, abs(want[k])), (k, got, want)
+    else:
+        port = convert.state_from_jax(state, tcfg, "cpu")
+        ckpt.save(str(tmp_path), convert.state_leaves(port), step=1)
+        target = jax.eval_shape(lambda k: JS.init_state(k, jcfg), jax.random.PRNGKey(0))
+        restored = jckpt.restore(str(tmp_path), target)
+        jax.tree.map(np.testing.assert_array_equal, jax.device_get(restored), state)
+        _, m = step(restored, data.batch(1, B, S))
+        assert {k: float(v) for k, v in m.items()} == want
+
+
+def test_launcher_trains_musicgen(tmp_path, capsys):
+    """``--reduced --arch musicgen-large`` trains on the CPU from
+    ``SyntheticLM``'s embeddings and codebook labels: finite losses, and a
+    checkpoint whose head has four codebooks' columns."""
+    assert launcher.main(["--reduced", "--arch", "musicgen-large", "--device", "cpu",
+                          "--batch", "2", "--seq", "16", "--steps", "2",
+                          "--ckpt-dir", str(tmp_path / "ck"),
+                          "--log", str(tmp_path / "log.json")]) == 0
+    assert "arch=musicgen-large devices=1 start_step=0" in capsys.readouterr().out
+    log = json.load(open(tmp_path / "log.json"))
+    assert [m["step"] for m in log] == [2] and np.isfinite(log[-1]["loss"])
+    leaves = ckpt.restore(str(tmp_path / "ck"))
+    assert leaves[".params/head/kernel"].shape == (64, 4 * 256)
+
+
 def test_save_restore_round_trip_bf16_and_async(tmp_path):
     """bfloat16 leaves are stored as raw bytes and come back bit for bit;
     ``AsyncCheckpointer`` writes the same files from a worker thread and
