@@ -121,25 +121,29 @@ Phases, each of which fails the run on any error:
    dQ, dK/dV and partial-sum kernels for bf16 at head dims 64-256, the
    CUDA-core dQ and dK/dV kernels otherwise; the RG-LRU scan's reverse
    recurrence) against their plain formulas on the card (flash at
-   recurrentgemma-2b's [1, 3072, 10, 1, 256] window 2048 and qwen2-7b's
-   heads, bf16 and float32 at head dims 16, 64, 128 and 256, bf16 also at
+   recurrentgemma-2b's [1, 3072, 10, 1, 256] window 2048, musicgen-large's
+   [1, 2048, 32, 32, 64] causal and qwen2-7b's heads, bf16 and float32 at head dims 16, 64, 128 and 256, bf16 also at
    each tensor-core instance's edges, with the forward kernels'
    log-sum-exp, and a second call bit-equal to the first; the scan at
    [1, 3072, 2560], [4, 512, 2560], the launchers' shapes and its plan's
    edges, a second call bit-equal, each case's staging path printed, TMA
    at the recurrentgemma-2b shapes and there the plain loads' bits the
    same) and timed beside their bounds (flash also beside SDPA's backward
-   with the same mask; the scan at both recurrentgemma-2b shapes with its
+   with the same mask, and at musicgen-large's training shape the flash
+   forward beside SDPA too; the scan at both recurrentgemma-2b shapes with its
    plan, blocks, blocks an SM, resident clusters and shared bytes);
    ``train_reduced``: three steps of the train launcher's reduced
    recurrentgemma-2b, qwen2-7b, qwen3-moe-30b-a3b (its loss with the
    MoE's auxiliary losses) and musicgen-large (embeddings in, codebook
    labels) on the card against the same steps on the CPU;
    ``train_launcher``: ``python -m repro_torch.launch.train
-   --reduced --arch recurrentgemma-2b`` for 4 steps, resumed to 6, against
-   an uninterrupted 6; ``train_full_width``: recurrentgemma-2b at its
-   published widths through ``ElasticTrainer.train_steps``, 4 steps of 1 ×
-   3072 tokens, remat ``block``. Each training run zeroes every launch
+   --reduced --arch recurrentgemma-2b --devices 1`` for 4 steps, resumed to
+   6, against an uninterrupted 6, and ``--devices`` one more than the host's
+   cards refused; ``train_full_width``: recurrentgemma-2b (4 steps of 1 ×
+   3072 tokens) and musicgen-large (4 steps of 1 × 2048 frames) at their
+   published widths through ``ElasticTrainer.train_steps`` on one card
+   (world size 1, no process group), remat ``block``, each with its peak
+   memory under 80 GB. Each training run zeroes every launch
    count, makes every plain version (forward and backward) raise, and
    checks the exact launches of both forward and both backward kernels.
 Earlier lines are JSON records; the last three are the card line from
@@ -147,7 +151,7 @@ Earlier lines are JSON records; the last three are the card line from
 scan, queue core, flash backward, scan backward; the forward rows'
 ``launches_by_run`` also count the training runs, the orchestrator phase
 and musicgen-large's serve; flash and decode carry a ``musicgen``
-sub-object) and ``{"ok": true,
+sub-object, flash and flash backward a ``musicgen_training`` one) and ``{"ok": true,
 "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository checkout.
@@ -364,6 +368,7 @@ def check_flash(torch, gen, dev):
         (1, 300, 10, 1, 16, 65, True, torch.bfloat16, 3e-2),
         (2, 130, 4, 2, 16, 0, False, torch.bfloat16, 3e-2),
         (4, 512, 32, 32, 64, 0, True, torch.bfloat16, 3e-2),     # musicgen-large's heads
+        (1, 2048, 32, 32, 64, 0, True, torch.bfloat16, 3e-2),    # musicgen-large training
         (2, 500, 28, 4, 64, 0, True, torch.bfloat16, 3e-2),
         (1, 300, 10, 1, 64, 65, True, torch.bfloat16, 3e-2),
         (2, 130, 4, 2, 64, 0, False, torch.bfloat16, 3e-2),
@@ -2125,6 +2130,7 @@ def check_flash_backward(torch, gen, dev):
     cases = [  # (B, S, H, K, hd, window, causal, dtype)
         (1, 3072, 10, 1, 256, 2048, True, bf16),   # recurrentgemma-2b, train_full_width
         (4, 512, 28, 4, 128, 0, True, bf16),       # qwen2-7b's heads
+        (1, 2048, 32, 32, 64, 0, True, bf16),      # musicgen-large, train_full_width
         (8, 128, 4, 1, 16, 16, True, f32),         # reduced recurrentgemma-2b, launcher
         (8, 128, 4, 2, 16, 0, True, f32),          # reduced qwen2-7b, launcher
         (2, 300, 8, 2, 16, 100, True, bf16), (2, 300, 8, 2, 64, 100, True, f32),
@@ -2332,18 +2338,21 @@ def train_reduced(torch, dev, arch: str, steps: int = 3) -> dict:
 
 
 def train_launcher(torch, out_dir: Path) -> dict:
-    """``python -m repro_torch.launch.train --reduced --arch recurrentgemma-2b``
-    in this process on the card: ``--steps 4 --ckpt-every 2``, then the same
+    """``python -m repro_torch.launch.train --reduced --arch recurrentgemma-2b
+    --devices 1`` in this process on the card (the elastic trainer at world
+    size 1: no process group): ``--steps 4 --ckpt-every 2``, then the same
     command with ``--steps 6`` (it must resume at step 4), and an
     uninterrupted 6-step run beside it; the resumed step-6 loss must equal
-    the uninterrupted one. Counted, plain versions raising."""
+    the uninterrupted one. Counted, plain versions raising. Then
+    ``--devices`` one more than this host's cards must raise, naming the
+    count, before any weight is drawn."""
     import shutil
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import train
     if out_dir.exists():
         shutil.rmtree(out_dir)
     out_dir.mkdir(parents=True)
-    base = ["--reduced", "--arch", "recurrentgemma-2b"]
+    base = ["--reduced", "--arch", "recurrentgemma-2b", "--devices", "1"]
     resumed = base + ["--ckpt-dir", str(out_dir / "resumed")]
     straight = base + ["--ckpt-dir", str(out_dir / "straight")]
     launches, outs = {}, []
@@ -2361,26 +2370,44 @@ def train_launcher(torch, out_dir: Path) -> dict:
     b = json.loads((out_dir / "straight.json").read_text())[-1]
     cfg = reduced_config(get_config("recurrentgemma-2b"))
     expected = train_launches(cfg, 4 + 2 + 6, True)
+    too_many = torch.cuda.device_count() + 1
+    try:
+        train.main(base[:-1] + [str(too_many), "--steps", "1",
+                                "--ckpt-dir", str(out_dir / "too_many")])
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
     emit({"phase": "train_launcher", "first_lines": first_lines,
           "resumed_step_6": a, "uninterrupted_step_6": b, "launches": launches,
-          "expected_launches": expected})
-    if not (first_lines[0].endswith("start_step=0") and first_lines[1].endswith(
-            "start_step=4") and "done; checkpoint at" in outs[1]):
+          "expected_launches": expected, f"devices_{too_many}": refused})
+    if not (first_lines[0].endswith("devices=1 start_step=0") and first_lines[1].endswith(
+            "devices=1 start_step=4") and "done; checkpoint at" in outs[1]):
         raise AssertionError(f"the launcher did not resume: {first_lines}")
     if a != b:
         raise AssertionError(f"resumed step 6 {a} != uninterrupted {b}")
     if launches != expected:
         raise AssertionError(f"train launcher launches {launches} != {expected}")
+    if not (refused and f"{too_many - 1} CUDA device" in refused):
+        raise AssertionError(f"--devices {too_many} on {too_many - 1} card(s): {refused}")
     return {k: launches[k] for k in TRAIN_KERNELS}
 
 
-def train_full_width(torch, dev, out_dir: Path, steps: int = 4) -> dict:
-    """recurrentgemma-2b at its published widths (bf16 weights from seed 0,
-    float32 AdamW state) through the port's ``ElasticTrainer.train_steps``,
-    batch 1 x 3072 tokens (longer than the 2048 window), remat "block", no
-    checkpoint. Per step: loss, grad_norm, wall ms (host clock around a
-    step that ends in a synchronize); peak device memory; exact launches of
-    the forward and backward kernels."""
+FULL_WIDTH_TRAINING = (  # (arch, batch, sequence, least parameters)
+    ("recurrentgemma-2b", 1, 3072, 2.8e9),      # longer than its 2048 window
+    ("musicgen-large", 1, 2048, 3.2e9),         # frames of SyntheticLM's embeddings
+)
+
+
+def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
+                     min_params: float, steps: int = 4) -> dict:
+    """``arch`` at its published widths (bf16 weights from seed 0, float32
+    AdamW state) through the port's ``ElasticTrainer.train_steps`` on one
+    card (world size 1: no process group, no collective), batch B x S of
+    ``SyntheticLM`` (musicgen-large: per-frame embeddings and 4-codebook
+    labels), remat "block", no checkpoint. Per step: loss, grad_norm, wall
+    ms (host clock around a step that ends in a synchronize); peak device
+    memory, which must stay under the card's 80 GB; exact launches of the
+    forward and backward kernels."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -2388,9 +2415,8 @@ def train_full_width(torch, dev, out_dir: Path, steps: int = 4) -> dict:
     from repro_torch.runtime.elastic import ElasticTrainer
     if out_dir.exists():
         shutil.rmtree(out_dir)
-    cfg = get_config("recurrentgemma-2b")
+    cfg = get_config(arch)
     tcfg = TrainConfig(remat="block")
-    B, S = 1, 3072
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = ElasticTrainer(cfg, tcfg, global_batch=B, seq_len=S, ckpt_dir=str(out_dir),
@@ -2412,18 +2438,20 @@ def train_full_width(torch, dev, out_dir: Path, steps: int = 4) -> dict:
     expected = train_launches(cfg, steps, True)
     steady = sorted(r["wall_ms"] for r in rows[1:])
     step_ms = steady[len(steady) // 2]
+    peak_bytes = torch.cuda.max_memory_allocated()
     record = {"phase": "train_full_width", "arch": cfg.name, "params": n_params,
               "batch": [B, S], "remat": tcfg.remat, "dtype": cfg.param_dtype,
-              "steps": rows, "loss_step_1": rows[0]["loss"],
+              "devices": trainer.mesh.size, "steps": rows, "loss_step_1": rows[0]["loss"],
               "step_ms_median_steps_2_on": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
               "init_s": init_s, "state_bytes_after_init": state_bytes,
-              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "max_memory_allocated_bytes": peak_bytes,
               "launches": launches, "expected_launches": expected,
               "nvidia_smi": card_line()}
     emit(record)
     profile_training(torch, trainer)
     finite = all(math.isfinite(r[k]) for r in rows for k in ("loss", "nll", "grad_norm"))
-    if not (finite and launches == expected and n_params > 2.8e9):
+    if not (finite and launches == expected and n_params > min_params
+            and peak_bytes < 80e9 and trainer.mesh.size == 1):
         raise AssertionError(f"full-width training failed: {record}")
     del trainer
     gc.collect()
@@ -2517,6 +2545,9 @@ def main() -> int:
     rglru_bwd_err = check_rglru_backward(torch, gen, dev)
     flash_bwd_t = measure_flash_backward(torch, gen, dev, peak, 1, 3072, 10, 1, 256, 2048)
     flash_bwd_qwen_t = measure_flash_backward(torch, gen, dev, peak, 4, 512, 28, 4, 128, 0)
+    # musicgen-large's training shape, forward (SDPA beside) and backward
+    flash_mg_train_t = measure_flash(torch, gen, dev, peak, 1, 2048, 32, 32, 64)
+    flash_bwd_mg_t = measure_flash_backward(torch, gen, dev, peak, 1, 2048, 32, 32, 64, 0)
     rglru_bwd_t = measure_rglru_backward(torch, gen, dev, peak, 1, 3072, 2560)
     rglru_bwd_4_t = measure_rglru_backward(torch, gen, dev, peak, 4, 512, 2560)
     from repro_torch.kernels.queue_core import ops as queue_ops
@@ -2574,8 +2605,9 @@ def main() -> int:
                                "musicgen-large")}
     train_runs["train_launcher (4 + 2 + 6 steps)"] = train_launcher(
         torch, ROOT / "build" / "chip_smoke_train")
-    train_runs["train_full_width recurrentgemma-2b (4 steps)"] = train_full_width(
-        torch, dev, ROOT / "build" / "chip_smoke_train_full")
+    for arch, B, S, min_params in FULL_WIDTH_TRAINING:
+        train_runs[f"train_full_width {arch} (4 steps)"] = train_full_width(
+            torch, dev, ROOT / "build" / "chip_smoke_train_full", arch, B, S, min_params)
     for run, counts in train_runs.items():
         for kernel, n in counts.items():
             if n:
@@ -2595,7 +2627,9 @@ def main() -> int:
                        [1, 1536, 16, 8, 256, "window 1024"],
                        flash_err[(1, 1536, 16, 8, 256, 1024)], flash_g3w_t),
                    musicgen=shape_figures([4, 512, 32, 32, 64], flash_err[
-                       (4, 512, 32, 32, 64, 0)], flash_mg_t)),
+                       (4, 512, 32, 32, 64, 0)], flash_mg_t),
+                   musicgen_training=shape_figures([1, 2048, 32, 32, 64], flash_err[
+                       (1, 2048, 32, 32, 64, 0)], flash_mg_train_t)),
         kernel_row("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:69",
                    decode_err[128], decode_t, launches["decode_attention"],
@@ -2637,7 +2671,9 @@ def main() -> int:
                                  "through XLA; no Pallas backward",
                    shape=[1, 3072, 10, 1, 256, "window 2048", "bf16"],
                    qwen2_heads=shape_figures([4, 512, 28, 4, 128], flash_bwd_err[
-                       (4, 512, 28, 4, 128)], flash_bwd_qwen_t)),
+                       (4, 512, 28, 4, 128)], flash_bwd_qwen_t),
+                   musicgen_training=shape_figures([1, 2048, 32, 32, 64], flash_bwd_err[
+                       (1, 2048, 32, 32, 64)], flash_bwd_mg_t)),
         kernel_row("rglru_scan_backward", "src/repro_torch/kernels/rglru_scan/csrc/"
                    "rglru_scan.cu", "src/repro/models/rglru.py:68",
                    rglru_bwd_err[(1, 3072, 2560)], rglru_bwd_t,

@@ -88,8 +88,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Per-run training hyperparameters / distribution knobs (the JAX
-    package's fields and defaults). On one card ``zero1`` and
-    ``sequence_parallel`` change nothing; ``remat`` other than ``"none"``
+    package's fields and defaults). ``zero1`` cuts m, v and the float32
+    master over the data-parallel ranks (nothing to cut on one device);
+    ``sequence_parallel`` waits for tensor parallelism (ROADMAP.md, queue 1
+    item 4b) and changes nothing; ``remat`` other than ``"none"``
     recomputes each pattern repetition in the backward pass."""
     microbatch: int = 0            # 0 -> no gradient accumulation
     remat: str = "block"           # none | block | full

@@ -158,11 +158,17 @@ def _opt_tree(tree: Mapping[str, Any], cfg: ModelConfig, device) -> Dict[str, to
                     copy=True) for k, t in _unstack(tree, cfg).items()}
 
 
-def _state(params: Mapping[str, Any], step, m, v, master, cfg: ModelConfig,
-           device) -> TrainState:
+def model_from_tree(params: Mapping[str, Any], cfg: ModelConfig, device) -> CausalLM:
+    """A port model on ``device``, gradients on, from a flat tree of JAX
+    leaves keyed by dotted path (``repeats.b0.mixer.wq.kernel`` ...)."""
     model = CausalLM(cfg, device=device)
     model.load_state_dict(_unstack(params, cfg), strict=True)
-    model.requires_grad_(True)
+    return model.requires_grad_(True)
+
+
+def _state(params: Mapping[str, Any], step, m, v, master, cfg: ModelConfig,
+           device) -> TrainState:
+    model = model_from_tree(params, cfg, device)
     names = [n for n, _ in model.named_parameters()]
     opt = OptState(torch.as_tensor(step).to(device=model.device, dtype=torch.int32),
                    *(_opt_tree(t, cfg, model.device) for t in (m, v, master)))
@@ -181,26 +187,42 @@ def state_from_jax(state: Any, cfg: ModelConfig, device=None) -> TrainState:
                   _flatten(opt.master), cfg, device)
 
 
+def jax_state_leaves(params: Mapping[str, torch.Tensor], step: torch.Tensor,
+                     m: Mapping[str, torch.Tensor], v: Mapping[str, torch.Tensor],
+                     master: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Checkpoint leaves from trees already in the JAX layout (dotted path
+    -> stacked leaf), keyed and ordered as the JAX checkpointer keys a JAX
+    ``TrainState``."""
+    leaves = lambda tree, prefix: _flatten(_nest(tree), prefix, "/")  # noqa: E731
+    out = leaves(params, ".params/")
+    out[".opt/.step"] = step.detach()
+    for name, tree in (("m", m), ("v", v), ("master", master)):
+        out.update(leaves(tree, f".opt/.{name}/"))
+    return out
+
+
 def state_leaves(state: TrainState) -> Dict[str, torch.Tensor]:
     """The checkpoint leaves of a port ``TrainState``, keyed and ordered as
     the JAX checkpointer keys a JAX ``TrainState``."""
     cfg = state.params.cfg
-    leaves = lambda tree, prefix: _flatten(_nest(_stack(tree, cfg)), prefix, "/")  # noqa: E731
-    out = leaves(dict(state.params.named_parameters()), ".params/")
-    out[".opt/.step"] = state.opt.step.detach()
-    for name in ("m", "v", "master"):
-        out.update(leaves(getattr(state.opt, name), f".opt/.{name}/"))
-    return out
+    opt = state.opt
+    return jax_state_leaves(_stack(dict(state.params.named_parameters()), cfg), opt.step,
+                            *(_stack(t, cfg) for t in (opt.m, opt.v, opt.master)))
+
+
+def leaf_tree(leaves: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The checkpoint leaves under ``prefix`` (``".params/"``,
+    ``".opt/.m/"`` ...) as a flat tree keyed by dotted JAX path."""
+    return {k[len(prefix):].replace("/", "."): t for k, t in leaves.items()
+            if k.startswith(prefix)}
 
 
 def state_from_leaves(leaves: Mapping[str, torch.Tensor], cfg: ModelConfig,
                       device=None) -> TrainState:
     """The reverse of ``state_leaves`` (extra keys are ignored)."""
-    def tree(prefix):
-        return {k[len(prefix):].replace("/", "."): t for k, t in leaves.items()
-                if k.startswith(prefix)}
-    return _state(tree(".params/"), leaves[".opt/.step"], tree(".opt/.m/"),
-                  tree(".opt/.v/"), tree(".opt/.master/"), cfg, device)
+    return _state(leaf_tree(leaves, ".params/"), leaves[".opt/.step"],
+                  leaf_tree(leaves, ".opt/.m/"), leaf_tree(leaves, ".opt/.v/"),
+                  leaf_tree(leaves, ".opt/.master/"), cfg, device)
 
 
 def cache_to_jax_layout(caches: List[Cache], cfg: ModelConfig) -> Dict[str, Any]:

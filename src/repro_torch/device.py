@@ -9,13 +9,15 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` or ``"cuda"`` -> ``cuda:0``; ``"cpu"`` only when asked.
+    """``None`` or ``"cuda"`` -> ``cuda:0``; ``"cpu"`` only when asked;
+    ``"meta"`` (shapes without storage, e.g. a model's parameter shapes at
+    widths no host holds) as it is.
 
     Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or by
     default) and none is present: the port never falls back to the CPU.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")

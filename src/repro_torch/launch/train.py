@@ -7,21 +7,30 @@
 Wraps the elastic trainer: re-running the same command resumes from the
 latest checkpoint. The JAX launcher's flags and defaults, plus ``--device``
 (``cuda`` by default: the card, or an error without one; ``cpu`` only when
-asked for). ``--devices`` may be 0 or 1 (one card); more raises: multi-card
-training waits for ROADMAP.md, queue 1 item 4. A reduced model's weights
-are drawn on the CPU and copied to the card, so ``--device cpu`` starts
-from the same weights. The default arch, deepseek-7b at its published
-widths, does not fit one 80 GB card with its AdamW state and stops with
-CUDA's out-of-memory error; recurrentgemma-2b does fit. Every arch of
-``repro_torch.configs.ARCHS`` trains reduced; for the MoE archs
-(qwen3-moe-30b-a3b, dbrx-132b) the loss adds the routers' auxiliary losses:
+asked for). ``--devices N`` trains data-parallel with ZeRO-1 over N
+devices: N ``gloo`` ranks with ``--device cpu``, N cards with ``cuda``
+(raises, naming the count, where fewer are present); 0, the default, means
+every visible card, or one CPU rank. One device trains in this process with
+no process group. It prints ``devices=`` the mesh's size, which
+``ElasticTrainer`` rounds down to a divisor of ``--batch``. ``--model-size``
+above 1 raises: tensor parallelism waits for ROADMAP.md, queue 1 item 4b.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --devices 4 --steps 4 --ckpt-dir "$(mktemp -d)"
+
+A reduced model's weights are drawn on the CPU and copied to the card, so
+``--device cpu`` starts from the same weights. The default arch,
+deepseek-7b at its published widths, does not fit one 80 GB card with its
+AdamW state and stops with CUDA's out-of-memory error; recurrentgemma-2b
+does fit. Every arch of ``repro_torch.configs.ARCHS`` trains reduced; for
+the MoE archs (qwen3-moe-30b-a3b, dbrx-132b) the loss adds the routers'
+auxiliary losses:
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --arch qwen3-moe-30b-a3b --steps 4 --ckpt-dir "$(mktemp -d)"
 
 musicgen-large trains on ``SyntheticLM``'s per-frame embeddings [B, S, D]
-and labels [B, S, 4], one per codebook head; reduced only here (at its
-published widths its ~52 GB of AdamW state is a later item of ROADMAP.md):
+and labels [B, S, 4], one per codebook head:
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --arch musicgen-large --steps 4 --ckpt-dir "$(mktemp -d)"
@@ -52,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=os.path.join(tempfile.gettempdir(), "repro_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--devices", type=int, default=0,
-                    help="cards to train on: 0 or 1 (one card)")
+                    help="devices to train on: N cards, or N CPU ranks with --device "
+                         "cpu; 0 = every card (one CPU rank)")
     ap.add_argument("--log", default="")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap
@@ -64,34 +74,40 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import visible_cards
     from repro_torch.runtime.elastic import ElasticTrainer
 
-    if args.devices not in (0, 1):
-        raise NotImplementedError(
-            f"--devices {args.devices}: the port trains on one card "
-            "(multi-card training: ROADMAP.md, queue 1 item 4)")
-    device = resolve_device(args.device)
+    if args.device == "cpu":
+        devices = ["cpu"] * max(1, args.devices)
+    else:
+        devices = visible_cards()
+        if args.devices > len(devices):
+            raise RuntimeError(f"--devices {args.devices}: this host has {len(devices)} "
+                               "CUDA device(s)")
+        devices = devices[:args.devices or len(devices)]
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     tcfg = TrainConfig(learning_rate=args.lr, microbatch=args.microbatch)
-    data = SyntheticLM(cfg, seed=0, device=device)
+    data = SyntheticLM(cfg, seed=0)
     trainer = ElasticTrainer(cfg, tcfg, global_batch=args.batch,
                              seq_len=args.seq, ckpt_dir=args.ckpt_dir,
                              model_size=args.model_size,
                              data_fn=data.data_fn,
-                             init_device="cpu" if args.reduced else device)
+                             init_device="cpu" if args.reduced else None)
     os.makedirs(args.ckpt_dir, exist_ok=True)
-    trainer.start([device])
-    print(f"arch={cfg.name} devices=1 start_step={trainer.step}")
-    t0 = time.time()
-    while trainer.step < args.steps:
-        n = min(args.ckpt_every, args.steps - trainer.step)
-        m = trainer.train_steps(n)
-        trainer.checkpoint()
-        print(f"step {m['step']}: loss={m['loss']:.4f} "
-              f"({(time.time() - t0):.1f}s)", flush=True)
+    try:
+        trainer.start(devices)
+        print(f"arch={cfg.name} devices={trainer.mesh.size} start_step={trainer.step}")
+        t0 = time.time()
+        while trainer.step < args.steps:
+            n = min(args.ckpt_every, args.steps - trainer.step)
+            m = trainer.train_steps(n)
+            trainer.checkpoint()
+            print(f"step {m['step']}: loss={m['loss']:.4f} "
+                  f"({(time.time() - t0):.1f}s)", flush=True)
+    finally:
+        trainer.close()
     if args.log:
         with open(args.log, "w") as f:
             json.dump(trainer.metrics_log, f, indent=1)

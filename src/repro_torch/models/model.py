@@ -61,9 +61,10 @@ Aux = Dict[str, torch.Tensor]
 class Block(nn.Module):
     """Pre-norm block (``apply_block``): the mixer (attention or the RG-LRU
     branch) then a gated MLP for ``attn``/``local``/``rglru``, or the MoE
-    (``moe``, one token group as the JAX model's default ``moe_groups=1``)
-    for ``attn``/``local`` when ``cfg.moe`` is set; for ``mlstm``/``slstm``
-    the mixer alone, ``x + mixer(pre_norm(x))``."""
+    (``moe``; in train mode over ``moe_groups`` token groups, as the JAX
+    model's argument, one group in prefill and decode) for ``attn``/``local``
+    when ``cfg.moe`` is set; for ``mlstm``/``slstm`` the mixer alone,
+    ``x + mixer(pre_norm(x))``."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -92,15 +93,19 @@ class Block(nn.Module):
                 self.mlp_norm.reset_parameters()
                 ffn.reset_parameters(generator)
 
-    def forward(self, x) -> Tuple[torch.Tensor, Aux]:
+    def forward(self, x, moe_groups: int = 1, moe_mean=None) -> Tuple[torch.Tensor, Aux]:
         """Train mode (``apply_block(mode="train")``): x [B,S,D] -> ([B,S,D],
-        the MoE's auxiliary losses, or {})."""
-        return self._finish(x, self.mixer(self.pre_norm(x)), with_aux=True)
+        the MoE's auxiliary losses, or {}). ``moe_mean`` is ``MoE.forward``'s
+        ``mean``."""
+        return self._finish(x, self.mixer(self.pre_norm(x)), with_aux=True,
+                            groups=moe_groups, mean=moe_mean)
 
-    def _finish(self, x, y, with_aux: bool) -> Tuple[torch.Tensor, Aux]:
+    def _finish(self, x, y, with_aux: bool, groups: int = 1,
+                mean=None) -> Tuple[torch.Tensor, Aux]:
         x = x + y
         if self.moe is not None:
-            y2, aux = self.moe(self.mlp_norm(x), groups=1, with_aux=with_aux)
+            y2, aux = self.moe(self.mlp_norm(x), groups=groups, with_aux=with_aux,
+                               mean=mean)
             return x + y2, aux
         if self.mlp is None:
             return x, {}
@@ -168,15 +173,17 @@ class CausalLM(nn.Module):
             logits = logits.unflatten(-1, (self.cfg.num_codebooks, self.cfg.vocab_size))
         return softcap(logits.float(), self.cfg.logit_softcap)
 
-    def _repeat(self, x, r: int) -> Tuple[torch.Tensor, List[Aux]]:
+    def _repeat(self, x, r: int, moe_groups: int = 1,
+                moe_mean=None) -> Tuple[torch.Tensor, List[Aux]]:
         P = len(self.cfg.block_pattern)
         auxs = []
         for block in self.layers[r * P:(r + 1) * P]:
-            x, aux = block(x)
+            x, aux = block(x, moe_groups, moe_mean)
             auxs.append(aux)
         return x, auxs
 
-    def forward(self, tokens: torch.Tensor, *, remat: str = "none"):
+    def forward(self, tokens: torch.Tensor, *, remat: str = "none", moe_groups: int = 1,
+                moe_mean=None):
         """Train-mode forward (``repro.models.model.forward``): tokens [B, S]
         (or embeddings [B, S, D]) -> (float32 logits [B, S, V] (or
         [B, S, C, V]), aux). ``remat`` other than ``"none"``
@@ -185,18 +192,23 @@ class CausalLM(nn.Module):
         scan body): its activations are recomputed in the backward pass, so
         its kernels launch twice a step. aux holds ``moe_lb`` and ``moe_z``
         summed over the layers in depth order when ``cfg.moe`` is set, and
-        is empty otherwise."""
+        is empty otherwise. The MoE cuts the tokens into ``moe_groups``
+        groups (the JAX ``forward``'s argument); ``moe_mean`` is
+        ``MoE.forward``'s ``mean``, for a data-parallel rank's share of
+        the batch."""
         x = self._embed_in(tokens)
         P = len(self.cfg.block_pattern)
         reps = self.cfg.num_layers // P
         ckpt = remat != "none"
         auxs: List[Aux] = []
         for r in range(reps):
-            x, a = (checkpoint(self._repeat, x, r, use_reentrant=False) if ckpt
-                    else self._repeat(x, r))
+            args = (x, r, moe_groups, moe_mean)
+            x, a = (checkpoint(self._repeat, *args, use_reentrant=False) if ckpt
+                    else self._repeat(*args))
             auxs.extend(a)
         for block in self.layers[reps * P:]:
-            x, a = checkpoint(block, x, use_reentrant=False) if ckpt else block(x)
+            args = (x, moe_groups, moe_mean)
+            x, a = checkpoint(block, *args, use_reentrant=False) if ckpt else block(*args)
             auxs.append(a)
         total: Aux = {}
         for a in auxs:

@@ -148,12 +148,20 @@ class MoE(nn.Module):
         h = self.act(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
         return torch.bmm(h, wo).reshape(E, G, cap, D).transpose(0, 1)
 
-    def forward(self, x: torch.Tensor, *, groups: int = 0, with_aux: bool = True
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, *, groups: int = 0, with_aux: bool = True,
+                mean=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x [B, S, D] -> (y [B, S, D], {"moe_lb", "moe_z"}) (``moe_forward``;
         ``groups`` is its ``num_groups``). Without ``with_aux`` the losses
         are not computed (prefill and decode drop them) and the dict is
-        empty."""
+        empty.
+
+        ``mean``, where given, maps the experts' assignment shares ``ce``
+        [E] of these tokens to their mean over every data-parallel rank's
+        tokens (an all-reduce). The load-balance loss is then
+        ``E * sum(me * mean(ce)) / top_k`` with this rank's ``me``: its mean
+        over the ranks is the loss of the whole batch, and so is its
+        gradient (``ce`` carries none), where every rank holds as many
+        tokens."""
         m = self.m
         B, S, D = x.shape
         N = B * S
@@ -168,6 +176,8 @@ class MoE(nn.Module):
         E = m.num_experts
         me = probs.mean(dim=(0, 1))
         ce = F.one_hot(top_i, E).sum(dim=2).float().mean(dim=(0, 1))
+        if mean is not None:
+            ce = mean(ce)
         lb = E * torch.sum(me * ce) / m.top_k
         zl = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
         return y, {"moe_lb": lb, "moe_z": zl}

@@ -21,11 +21,10 @@ a pluggable cooperative policy — the runtime twin of the N-department
 
 With no ``devices`` the pool is every CUDA device (``DevicePool()``), and
 it raises ``RuntimeError`` when there is none; the CPU is used only when
-the caller lists it (``devices=["cpu"]``). A port ``ElasticTrainer`` takes
-one device (``repro_torch.runtime.elastic``), so a batch group of more
-than one device raises ``NotImplementedError`` at its trainer's start or
-resize until multi-card training lands (ROADMAP.md, queue 1 item 4).
-Stub trainers and pools with the same methods run any device count.
+the caller lists it (``devices=["cpu"]``). A port ``ElasticTrainer``
+trains on its batch group's devices (``repro_torch.runtime.elastic``): one
+in this process, N as data-parallel ranks. Stub trainers and pools with
+the same methods run any device count.
 
 The port's own copy of ``repro.runtime.orchestrator`` with the same logic.
 """

@@ -41,25 +41,59 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
 
 
+def quantize(x: torch.Tensor, peak: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantize-dequantize of ``x`` at the scale of ``peak``,
+    the largest magnitude of the tensor ``x`` is part of; rounds half to
+    even (``torch.round``, as ``jnp.round``)."""
+    scale = torch.clamp_min(peak, 1e-12) / 127.0
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+    return q.float() * scale
+
+
 def quantize_int8(g: Mapping[str, torch.Tensor],
                   groups: Optional[Mapping[str, str]] = None) -> Tree:
-    """Per-tensor symmetric int8 quantize-dequantize; rounds half to even
-    (``torch.round``, as ``jnp.round``). ``groups`` maps each key to the
-    tensor it is part of: leaves of one group share one scale, the largest
-    magnitude over all of them, as the layers that the JAX model stacks into
-    one leaf do (``models.model.jax_leaf``). A key it lacks is alone."""
+    """Per-tensor symmetric int8 quantize-dequantize (``quantize``).
+    ``groups`` maps each key to the tensor it is part of: leaves of one
+    group share one scale, the largest magnitude over all of them, as the
+    layers that the JAX model stacks into one leaf do
+    (``models.model.jax_leaf``). A key it lacks is alone."""
     group = lambda k: groups.get(k, k) if groups else k
     peak: Dict[str, torch.Tensor] = {}
     for k, x in g.items():
         m = x.float().abs().max()
         peak[group(k)] = torch.maximum(peak.get(group(k), m), m)
+    return {k: quantize(x, peak[group(k)]) for k, x in g.items()}
 
-    def one(k, x):
-        xf = x.float()
-        scale = torch.clamp_min(peak[group(k)], 1e-12) / 127.0
-        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-        return q.float() * scale
-    return {k: one(k, x) for k, x in g.items()}
+
+def clip_factor(gnorm: torch.Tensor, tcfg: TrainConfig):
+    """The factor that clips gradients of global norm ``gnorm`` to
+    ``grad_clip`` (1.0 where clipping is off)."""
+    if tcfg.grad_clip <= 0:
+        return 1.0
+    return torch.clamp(tcfg.grad_clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
+
+
+def bias_corrections(step: torch.Tensor, tcfg: TrainConfig):
+    """(1 - beta1^step, 1 - beta2^step) in float32."""
+    def one(beta):
+        return 1.0 - torch.pow(torch.tensor(beta, dtype=torch.float32, device=step.device),
+                               step.float())
+    return one(tcfg.beta1), one(tcfg.beta2)
+
+
+@torch.no_grad()
+def adamw_leaf(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               clip, bc1, bc2, tcfg: TrainConfig) -> torch.Tensor:
+    """One AdamW step of one leaf (or shard of one) in place on its float32
+    m, v and master ``w``: the gradient scaled by ``clip``, bias corrections
+    ``bc1``, ``bc2``, decoupled weight decay on the master. Returns ``w``."""
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    g = g.float() * clip
+    m.mul_(b1).add_(g, alpha=1 - b1)
+    v.mul_(b2).add_(torch.square(g), alpha=1 - b2)
+    delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(tcfg.eps))
+    delta.add_(w, alpha=tcfg.weight_decay)
+    return w.sub_(delta, alpha=tcfg.learning_rate)
 
 
 @torch.no_grad()
@@ -75,21 +109,9 @@ def adamw_update(opt: OptState, grads: Mapping[str, torch.Tensor],
     if tcfg.grad_compression == "int8":
         grads = quantize_int8(grads, groups)
     gnorm = global_norm(grads)
-    clip = (torch.clamp(tcfg.grad_clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
-            if tcfg.grad_clip > 0 else 1.0)
+    clip = clip_factor(gnorm, tcfg)
     step = opt.step + 1
-    b1, b2 = tcfg.beta1, tcfg.beta2
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device),
-                          step.float())
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device),
-                          step.float())
+    bc1, bc2 = bias_corrections(step, tcfg)
     for k, p in params.items():
-        g = grads[k].float() * clip
-        m, v, w = opt.m[k], opt.v[k], opt.master[k]
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).add_(torch.square(g), alpha=1 - b2)
-        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(tcfg.eps))
-        delta.add_(w, alpha=tcfg.weight_decay)
-        w.sub_(delta, alpha=tcfg.learning_rate)
-        p.copy_(w)
+        p.copy_(adamw_leaf(grads[k], opt.m[k], opt.v[k], opt.master[k], clip, bc1, bc2, tcfg))
     return params, OptState(step, opt.m, opt.v, opt.master), {"grad_norm": gnorm}

@@ -211,13 +211,29 @@ def test_elastic_resize_continues_with_the_same_losses(tmp_path, cfgs):
 
 
 def test_elastic_trainer_takes_one_device(tmp_path, cfgs):
+    """What is still refused: a model split over devices (``model_size`` > 1,
+    tensor parallelism: ROADMAP.md queue 1 item 4b). Two CPU devices train
+    as two data-parallel ranks, from the one-device trainer's checkpoint, and
+    the next step's loss is the one-device trainer's."""
     _, tcfg = cfgs
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _trainer(tcfg, tmp_path).start(["cpu", "cpu"])
     trainer = ElasticTrainer(tcfg, TrainConfig(), global_batch=B, seq_len=S,
-                             ckpt_dir=str(tmp_path), model_size=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trainer.start(["cpu"])
+                             ckpt_dir=str(tmp_path / "tp"), model_size=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        trainer.start(["cpu", "cpu"])
+    one = _trainer(tcfg, tmp_path / "one")
+    one.start(["cpu"])
+    one.train_steps(1)
+    one.checkpoint()
+    two = _trainer(tcfg, tmp_path / "one")
+    try:
+        two.start(["cpu", "cpu"])
+        assert two.step == 1 and two.mesh.shape == {"data": 2, "model": 1}
+        got = two.train_steps(1)
+    finally:
+        two.close()
+    want = one.train_steps(1)
+    assert got["devices"] == 2 and want["devices"] == 1
+    assert abs(got["loss"] - want["loss"]) <= TOL, (got, want)
 
 
 def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
@@ -236,8 +252,8 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
                                       "--log", str(tmp_path / "log2.json")]) == 0
     straight = json.load(open(tmp_path / "log2.json"))
     assert straight[-1] == resumed[-1]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        launcher.main(argv + ["--devices", "2"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        launcher.main(argv + ["--model-size", "2"])
 
 
 def test_launcher_trains_the_moe_arch(tmp_path, capsys):
