@@ -143,14 +143,21 @@ Phases, each of which fails the run on any error:
    3072 tokens) and musicgen-large (4 steps of 1 × 2048 frames) at their
    published widths through ``ElasticTrainer.train_steps`` on one card
    (world size 1, no process group), remat ``block``, each with its peak
-   memory under 80 GB. Each training run zeroes every launch
+   memory under 80 GB; ``phoenix``: the paper's ``PhoenixOrchestrator`` on
+   ``DevicePool()`` between a full-width recurrentgemma-2b ``ServingPool``
+   (8 requests of 512 + 32 while it holds the card) and a full-width
+   recurrentgemma-2b ``ElasticTrainer`` (``train_full_width``'s setup)
+   that the reflow starts: 2 steps, a WS spike that gets nothing, a timed
+   resize by checkpoint (write and restore walls, bytes, the filesystem's
+   free bytes), 2 steps; the events must equal a stub run's and the four
+   losses ``train_full_width``'s bits. Each training run zeroes every launch
    count, makes every plain version (forward and backward) raise, and
    checks the exact launches of both forward and both backward kernels.
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` (seven rows: flash, decode, mLSTM,
 scan, queue core, flash backward, scan backward; the forward rows'
-``launches_by_run`` also count the training runs, the orchestrator phase
-and musicgen-large's serve; flash and decode carry a ``musicgen``
+``launches_by_run`` also count the training runs, the orchestrator and
+phoenix phases and musicgen-large's serve; flash and decode carry a ``musicgen``
 sub-object, flash and flash backward a ``musicgen_training`` one) and ``{"ok": true,
 "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
@@ -2407,7 +2414,7 @@ def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
     labels), remat "block", no checkpoint. Per step: loss, grad_norm, wall
     ms (host clock around a step that ends in a synchronize); peak device
     memory, which must stay under the card's 80 GB; exact launches of the
-    forward and backward kernels."""
+    forward and backward kernels. Returns the launches and the losses."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -2456,7 +2463,185 @@ def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in TRAIN_KERNELS}
+    return {k: launches[k] for k in TRAIN_KERNELS}, [r["loss"] for r in rows]
+
+
+# The phoenix phase's ticks. WS ticks go through ws_tick_slo with an SLO
+# autoscaler of n_min 0: the utilization rule of ws_tick never asks for
+# fewer than one replica, so WS would never give the only card back and the
+# trainer would never start (the stub run of PHOENIX_UTIL_TICKS shows it).
+PHX_SPIKE = ("ws_tick_slo", 5.0, 0.35, 1.0)
+PHX_QUIET = ("ws_tick_slo", 0.0, 0.35, 1.0)
+PHOENIX_TICKS = [PHX_SPIKE, ("start",), ("submit",), PHX_QUIET, ("train_steps", 2),
+                 PHX_SPIKE, ("resize",), ("train_steps", 2)]
+PHOENIX_UTIL_TICKS = [("ws_tick", 1e6), ("start",), ("ws_tick", 0.0), ("train_steps", 2)]
+
+
+class StubUtilPool(StubPool):
+    """A stub pool with ``ServingPool.desired_replicas``' §III-C rule."""
+    capacity = 4096.0
+
+    def desired_replicas(self, load):
+        from repro_torch.runtime.serving_pool import ServingPool
+        return ServingPool.desired_replicas(self, load)
+
+
+def phoenix_orchestrator(trainer, pool, devices):
+    """The paper's two-department wiring (``PhoenixOrchestrator``) with an
+    SLO autoscaler at 2 s, n_min 0 and n_max 1; ``devices`` None takes
+    ``DevicePool()``'s, every CUDA device."""
+    from repro_torch.core.types import SLOConfig
+    from repro_torch.runtime.orchestrator import PhoenixOrchestrator
+    from repro_torch.serving.batching import ServiceTimeModel
+    from repro_torch.workloads.autoscaler import SLOAutoscaler
+    return PhoenixOrchestrator(trainer, pool, devices=devices, slo_autoscaler=SLOAutoscaler(
+        ServiceTimeModel(), SLOConfig(latency_target_s=2.0), n_min=0, n_max=1))
+
+
+def phoenix_tick(orch, op):
+    """One tick of ``PHOENIX_TICKS`` (``submit`` is the caller's); n train
+    steps as n calls of one, so that each step's metrics are logged."""
+    if op[0] == "resize":               # what _resize_trainer does on a grant
+        orch.trainer.resize(orch.devs.st)
+    elif op[0] == "train_steps":
+        for _ in range(op[1]):
+            orch.train_steps(1)
+    elif op[0] != "submit":
+        getattr(orch, op[0])(*op[1:])
+
+
+def _tree_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phoenix_phase(torch, out_dir: Path, want_losses: list) -> dict:
+    """The paper's ``PhoenixOrchestrator`` on ``DevicePool()`` (the card) with
+    full-width workloads on both sides. WS: a ``ServingPool`` of
+    recurrentgemma-2b at its published widths (bf16 weights drawn on the
+    card from seed 0). HPC: an ``ElasticTrainer`` of recurrentgemma-2b at
+    its published widths with ``train_full_width``'s setup (1 x 3072 tokens,
+    remat ``block``, ``SyntheticLM`` seed 0), checkpointing into
+    ``out_dir``. The ticks (``PHOENIX_TICKS``): a WS spike before
+    ``start()`` takes the idle card; ``start()`` finds nothing idle, so the
+    trainer does not start; 8 requests of 512 + 32 tokens at batch 4
+    through ``pool.submit``; zero WS load gives the card back, it reflows to
+    ST and ``_grant_st`` starts the trainer; 2 train steps; a second spike
+    gets nothing (ST is at its floor: ``min_st`` is at least one device);
+    ``trainer.resize(orch.devs.st)``, the call ``_resize_trainer`` makes on
+    a grant, made directly because on one card no grant can follow a
+    reclaim (timed: the checkpoint's write, the restore, the bytes and the
+    free space before the write); 2 more train steps. Counted, plain
+    versions raising. Fails unless the events equal the same ticks through
+    ``PhoenixOrchestrator`` with stub workloads, the trainer was resized
+    once, its four losses equal ``want_losses`` (``train_full_width``'s
+    recurrentgemma-2b losses of this run) bit for bit, the served tokens
+    are in range, the launches are exact and the peak memory stays under
+    80 GB. The checkpoint is deleted after the phase."""
+    import shutil
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.runtime.device_pool import cuda_devices
+    from repro_torch.runtime.elastic import ElasticTrainer
+    from repro_torch.runtime.serving_pool import ServingPool
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    stub = phoenix_orchestrator(StubTrainer(), StubPool(), ["cuda:0"])
+    for op in PHOENIX_TICKS:
+        phoenix_tick(stub, op)
+    util = phoenix_orchestrator(StubTrainer(), StubUtilPool(), ["cuda:0"])
+    for op in PHOENIX_UTIL_TICKS:
+        getattr(util, op[0])(*op[1:])
+
+    cfg = get_config("recurrentgemma-2b")
+    B, S = 1, 3072
+    torch.cuda.reset_peak_memory_stats()
+    dev = cuda_devices()[0]                    # what DevicePool() takes
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    pool = ServingPool(cfg, model)
+    trainer = ElasticTrainer(cfg, TrainConfig(remat="block"), global_batch=B, seq_len=S,
+                             ckpt_dir=str(out_dir), data_fn=SyntheticLM(cfg, seed=0).data_fn)
+    walls = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            return out
+        return run
+    trainer.checkpoint = timed("checkpoint_s", trainer.checkpoint)
+    trainer._try_restore = timed("restore_s", trainer._try_restore)
+    orch = phoenix_orchestrator(trainer, pool, None)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 512), dtype=np.int32)
+    ticks, served, launches, resize, started_at = [], [], {}, {}, None
+    with counted_on_card(launches):
+        for i, op in enumerate(PHOENIX_TICKS):
+            if op[0] == "resize":
+                resize["free_bytes_before"] = shutil.disk_usage(out_dir).free
+                resize["memory_allocated_before_bytes"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if op[0] == "submit":
+                if [r.device for r in pool.replicas] != [dev] or trainer.mesh is not None:
+                    raise AssertionError("the WS department does not hold the card")
+                served = [pool.submit(prompts[j:j + 4], 32) for j in (0, 4)]
+            phoenix_tick(orch, op)
+            torch.cuda.synchronize()
+            ticks.append({"tick": op[0], "args": list(op[1:]),
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "st": len(orch.devs.st), "ws": len(orch.devs.ws),
+                          "replicas": len(pool.replicas)})
+            orch.devs.check()
+            orch.rps.check()
+            if started_at is None and trainer.mesh is not None:
+                started_at = i
+            if op[0] == "resize":
+                resize.update(wall_s=ticks[-1]["wall_ms"] / 1e3, **walls,
+                              checkpoint_bytes=_tree_bytes(out_dir), step=trainer.step)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in trainer.metrics_log]
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    want = train_launches(cfg, 4, True)
+    want["flash_attention"] += 2 * n_attn
+    want["decode_attention"] += 2 * n_attn * 31
+    want["rglru_scan"] += 2 * kinds.count("rglru")
+    tokens_ok = all(t.shape == (4, 32) and (t >= 0).all() and (t < cfg.vocab_size).all()
+                    for t in served)
+    record = {"phase": "phoenix", "devices": [str(d) for d in orch.devs.devices],
+              "serve": {"arch": cfg.name, "d_model": cfg.d_model, "requests": 8,
+                        "prompt_len": 512, "max_new": 32, "batch": 4, "tokens_ok": tokens_ok,
+                        "timings_ms": [{k: v * 1e3 for k, v in t.items() if k.endswith("_s")}
+                                       for t in pool.timings]},
+              "train": {"arch": cfg.name, "batch": [B, S], "remat": "block",
+                        "started_at_tick": started_at, "resizes": trainer.resizes,
+                        "metrics": trainer.metrics_log, "losses": losses,
+                        "train_full_width_losses": want_losses,
+                        "losses_bit_equal": losses == want_losses},
+              "resize": resize, "ticks": ticks, "events": orch.events,
+              "stub_events": stub.events,
+              "utilization_rule_stub": {"ticks": [list(op) for op in PHOENIX_UTIL_TICKS],
+                                        "events": util.events,
+                                        "trainer_started": util._started},
+              "max_memory_allocated_bytes": peak, "launches": launches,
+              "expected_launches": want, "nvidia_smi": card_line()}
+    emit(record)
+    ok = (orch.events == stub.events and started_at == 3 and trainer.resizes == 1
+          and losses == want_losses and tokens_ok and launches == want and peak < 80e9
+          and orch.devs.total == 1)
+    if not ok:
+        raise AssertionError(f"phoenix phase failed: {record}")
+    del orch, pool, model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
 
 
 def profile_training(torch, trainer) -> None:
@@ -2605,9 +2790,14 @@ def main() -> int:
                                "musicgen-large")}
     train_runs["train_launcher (4 + 2 + 6 steps)"] = train_launcher(
         torch, ROOT / "build" / "chip_smoke_train")
+    full_width_losses = {}
     for arch, B, S, min_params in FULL_WIDTH_TRAINING:
-        train_runs[f"train_full_width {arch} (4 steps)"] = train_full_width(
-            torch, dev, ROOT / "build" / "chip_smoke_train_full", arch, B, S, min_params)
+        train_runs[f"train_full_width {arch} (4 steps)"], full_width_losses[arch] = \
+            train_full_width(torch, dev, ROOT / "build" / "chip_smoke_train_full", arch, B, S,
+                             min_params)
+    train_runs["phoenix: recurrentgemma-2b serve + full-width trainer (4 steps, 1 resize)"] = \
+        phoenix_phase(torch, ROOT / "build" / "chip_smoke_phoenix",
+                      full_width_losses["recurrentgemma-2b"])
     for run, counts in train_runs.items():
         for kernel, n in counts.items():
             if n:

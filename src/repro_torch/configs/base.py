@@ -90,9 +90,11 @@ class TrainConfig:
     """Per-run training hyperparameters / distribution knobs (the JAX
     package's fields and defaults). ``zero1`` cuts m, v and the float32
     master over the data-parallel ranks (nothing to cut on one device);
-    ``sequence_parallel`` waits for tensor parallelism (ROADMAP.md, queue 1
-    item 4b) and changes nothing; ``remat`` other than ``"none"``
-    recomputes each pattern repetition in the backward pass."""
+    ``sequence_parallel`` cuts the residual stream on the sequence over the
+    model group where the trainer's ``model_size`` is above 1 and divides
+    the sequence (a change of layout, not of the loss); ``remat`` other
+    than ``"none"`` recomputes each pattern repetition in the backward
+    pass."""
     microbatch: int = 0            # 0 -> no gradient accumulation
     remat: str = "block"           # none | block | full
     zero1: bool = True             # shard optimizer state over data axis

@@ -15,6 +15,14 @@ then the optimizer's step, m, v and master, whose trees have the params'
 layout). ``state_leaves`` / ``state_from_leaves`` give the same state as the
 flat leaf keys of the JAX checkpoint (``.params/...``, ``.opt/.step``,
 ``.opt/.m/...``), which ``repro_torch.checkpoint`` writes and reads.
+
+Per rank of a data × model mesh: ``rank_tree`` narrows each whole leaf to
+the rank's cut (``partitioning.local_cut`` by the leaf's spec), and
+``model_from_tree(..., mp=...)`` loads a rank's model so. The inverse is
+``partitioning.gather_cut``, which puts a leaf back together from every
+rank's cut: the checkpoint path (``training.data_parallel.state_leaves``)
+gathers the cuts over the ranks leaf by leaf and writes whole leaves, so a
+checkpoint is the same on any layout.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import Cache
 from repro_torch.models.model import CausalLM, jax_leaf
+from repro_torch.sharding import partitioning as pt
 from repro_torch.training.optimizer import OptState
 from repro_torch.training.train_step import TrainState
 
@@ -90,18 +99,21 @@ def _unstack(flat: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tenso
     return state
 
 
-def _stack(tree: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def _stack(tree: Mapping[str, torch.Tensor], cfg: ModelConfig,
+           device=None) -> Dict[str, torch.Tensor]:
     """The port's parameter names -> dotted JAX-layout names, each pattern
-    position's layers stacked along a leading repeat axis."""
+    position's layers stacked along a leading repeat axis (on ``device``,
+    where given: each layer moves there first)."""
     reps, _ = _pattern_split(cfg)
     out: Dict[str, torch.Tensor] = {}
     stacks: Dict[str, List[torch.Tensor]] = {}
     for name, t in tree.items():
         key, r = jax_leaf(name, cfg)
+        t = t.detach() if device is None else t.detach().to(device)
         if r is None:
-            out[key] = t.detach()
+            out[key] = t
         else:
-            stacks.setdefault(key, [None] * reps)[r] = t.detach()
+            stacks.setdefault(key, [None] * reps)[r] = t
     out.update({k: torch.stack(v) for k, v in stacks.items()})
     return out
 
@@ -158,10 +170,30 @@ def _opt_tree(tree: Mapping[str, Any], cfg: ModelConfig, device) -> Dict[str, to
                     copy=True) for k, t in _unstack(tree, cfg).items()}
 
 
-def model_from_tree(params: Mapping[str, Any], cfg: ModelConfig, device) -> CausalLM:
-    """A port model on ``device``, gradients on, from a flat tree of JAX
-    leaves keyed by dotted path (``repeats.b0.mixer.wq.kernel`` ...)."""
-    model = CausalLM(cfg, device=device)
+def param_specs(cfg: ModelConfig, mesh) -> Dict[str, "pt.Spec"]:
+    """``param_specs`` of ``cfg``'s whole leaves on ``mesh`` (anything with
+    a ``shape`` dict: a ``Mesh`` or a ``ModelParallel``), keyed by dotted
+    path."""
+    shapes = pt.param_shape_tree(CausalLM(cfg, device="meta"))
+    return {k.replace("/", "."): s for k, s in pt.param_specs(shapes, cfg, mesh).items()}
+
+
+def rank_tree(tree: Mapping[str, Any], specs: Mapping[str, "pt.Spec"], coords, mesh
+              ) -> Dict[str, torch.Tensor]:
+    """A flat tree of whole leaves (dotted path -> numpy or tensor) narrowed
+    to the cut of the rank at ``coords`` on ``mesh``."""
+    return {k: pt.local_cut(v if isinstance(v, torch.Tensor) else to_tensor(v), specs[k],
+                            coords, mesh) for k, v in tree.items()}
+
+
+def model_from_tree(params: Mapping[str, Any], cfg: ModelConfig, device,
+                    mp: "pt.ModelParallel" = pt.NONE) -> CausalLM:
+    """A port model on ``device``, gradients on, from a flat tree of whole
+    JAX leaves keyed by dotted path (``repeats.b0.mixer.wq.kernel`` ...);
+    with ``mp``, the model of that rank, each leaf narrowed to its cut."""
+    if mp.size > 1 or mp.data_size > 1:
+        params = rank_tree(params, param_specs(cfg, mp), mp.coords(), mp)
+    model = CausalLM(cfg, device=device, mp=mp)
     model.load_state_dict(_unstack(params, cfg), strict=True)
     return model.requires_grad_(True)
 
@@ -202,12 +234,14 @@ def jax_state_leaves(params: Mapping[str, torch.Tensor], step: torch.Tensor,
 
 
 def state_leaves(state: TrainState) -> Dict[str, torch.Tensor]:
-    """The checkpoint leaves of a port ``TrainState``, keyed and ordered as
-    the JAX checkpointer keys a JAX ``TrainState``."""
+    """The checkpoint leaves of a port ``TrainState`` in host memory (each
+    layer copied there before it is stacked: on the card a second copy of
+    the state would not fit beside it), keyed and ordered as the JAX
+    checkpointer keys a JAX ``TrainState``."""
     cfg = state.params.cfg
     opt = state.opt
-    return jax_state_leaves(_stack(dict(state.params.named_parameters()), cfg), opt.step,
-                            *(_stack(t, cfg) for t in (opt.m, opt.v, opt.master)))
+    return jax_state_leaves(_stack(dict(state.params.named_parameters()), cfg, "cpu"),
+                            opt.step, *(_stack(t, cfg, "cpu") for t in (opt.m, opt.v, opt.master)))
 
 
 def leaf_tree(leaves: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:

@@ -4,16 +4,20 @@ A ``Mesh`` is a device array with named axes, as JAX's: ``devices`` (an
 object array of ``torch.device`` of the mesh's shape), ``axis_names`` and
 ``shape`` (axis name -> extent, in axis order). The port passes its mesh
 explicitly, so JAX's ``set_mesh`` has no counterpart. In a process of a
-``torch.distributed`` world of more than one rank, ``make_mesh`` also builds
-a ``DeviceMesh`` over the world (rank r on the r-th device, row-major), and
-``group(axis)`` is the process group of that axis that the collectives use.
+``torch.distributed`` world of more than one rank, ``make_mesh`` lays rank r
+on the r-th device in row-major order, as ``jax.sharding.Mesh`` lays out
+``devices.reshape(shape)``: on a (data, model) mesh rank r = d · model + m.
+It gives the rank its coordinates (``coords``) and, for each axis, the
+process group of the ranks that differ from it along that axis alone
+(``group(axis)``, a ``dist.new_group``): the model group holds the ranks of
+the rank's data index, the data group those of its model index.
 ``HW``, the JAX module's table of TPU figures, waits for the cost tooling
 (ROADMAP.md, queue 1 item 7), which gives the port an H100 entry.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,7 +30,8 @@ from repro_torch.device import DeviceLike, resolve_device
 class Mesh:
     devices: np.ndarray                  # torch.device, of the mesh's shape
     axis_names: Tuple[str, ...]
-    device_mesh: Optional[Any] = None    # torch.distributed DeviceMesh, in a rank
+    rank: Optional[int] = None           # this process's rank, in a world of N
+    groups: Dict[str, Any] = field(default_factory=dict)   # axis -> process group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -36,10 +41,17 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """Axis name -> index of ``rank`` (this process's by default; 0
+        outside a world) on the mesh, row-major."""
+        rank = (self.rank or 0) if rank is None else rank
+        index = np.unravel_index(rank, self.devices.shape)
+        return {a: int(i) for a, i in zip(self.axis_names, index)}
+
     def group(self, axis: str):
         """The process group of ``axis`` in this rank's world, or ``None``
         outside one (world size 1: no collective is issued)."""
-        return None if self.device_mesh is None else self.device_mesh[axis].get_group()
+        return self.groups.get(axis)
 
 
 def visible_cards() -> list:
@@ -78,9 +90,24 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         if dist.get_world_size() != n:
             raise ValueError(f"world of {dist.get_world_size()} ranks for a mesh of {n}")
-        from torch.distributed.device_mesh import init_device_mesh
-        mesh.device_mesh = init_device_mesh(devices[0].type, shape, mesh_dim_names=axes)
+        mesh.rank = dist.get_rank()
+        mesh.groups = _axis_groups(shape, axes, mesh.rank)
     return mesh
+
+
+def _axis_groups(shape: Tuple[int, ...], axes: Tuple[str, ...], rank: int) -> Dict[str, Any]:
+    """For each axis, ``dist.new_group`` over every line of ranks along it
+    (every rank creates every group, in one order); this rank's line's."""
+    import torch.distributed as dist
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    out = {}
+    for i, axis in enumerate(axes):
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, shape[i])
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                out[axis] = group
+    return out
 
 
 def make_production_mesh(*, multi_pod: bool = False,

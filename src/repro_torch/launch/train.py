@@ -12,11 +12,16 @@ devices: N ``gloo`` ranks with ``--device cpu``, N cards with ``cuda``
 (raises, naming the count, where fewer are present); 0, the default, means
 every visible card, or one CPU rank. One device trains in this process with
 no process group. It prints ``devices=`` the mesh's size, which
-``ElasticTrainer`` rounds down to a divisor of ``--batch``. ``--model-size``
-above 1 raises: tensor parallelism waits for ROADMAP.md, queue 1 item 4b.
+``ElasticTrainer`` rounds down to a divisor of ``--batch``. ``--model-size
+N`` cuts the model over groups of N of those devices (tensor parallelism:
+a (devices / N) x N mesh); fewer devices than N raises ``ValueError``,
+naming both counts, before any weight is drawn (on one card,
+``--model-size 2`` exits non-zero).
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --devices 4 --steps 4 --ckpt-dir "$(mktemp -d)"
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --devices 4 --model-size 2 --steps 4 --ckpt-dir "$(mktemp -d)"
 
 A reduced model's weights are drawn on the CPU and copied to the card, so
 ``--device cpu`` starts from the same weights. The default arch,

@@ -9,6 +9,16 @@ position p in slot ``p % L`` (a ring buffer for sliding-window layers).
 With ``cfg.qk_norm`` each head's q and k go through an RMSNorm over
 ``head_dim`` (``q_norm``, ``k_norm``) after the projections and before rope,
 in every mode.
+
+Under tensor parallelism (train mode) a rank computes its block of the
+heads: ``wq`` cut on a head boundary gives it H / model query heads, ``wk``
+and ``wv`` cut on one K / model kv heads. A ``wk``/``wv`` cut inside a head
+(``param_specs`` cuts by size, not by heads: reduced qwen2-7b's 2 kv heads
+of 16 over 4 ranks) is all-gathered over the model group, and the rank
+takes the kv heads its query heads read. QK-norm and rope act on the local
+heads, and the flash kernel gets the local head counts; the row-parallel
+``wo`` all-reduces the heads' partial sums. Where ``wq`` is cut off a head
+boundary the rank gathers every head and computes them all.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import Dense, RMSNorm, apply_rope
+from repro_torch.sharding.partitioning import NONE
 
 Cache = Dict[str, torch.Tensor]
 
@@ -40,6 +51,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 class Attention(nn.Module):
+    mp = NONE
+
     def __init__(self, cfg: ModelConfig, *, window: int, theta: float,
                  dtype, device):
         super().__init__()
@@ -63,24 +76,50 @@ class Attention(nn.Module):
 
     def _project_qkv(self, x, positions):
         """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,K,hd]: QK-norm (if any), then
-        rope."""
+        rope. On a rank of a model group, q holds this rank's heads (all of
+        them where ``wq`` is not cut on a head boundary) and k/v the heads
+        they read, the QK-norm scales entering the cut; with ``NONE`` every
+        collective below is the identity."""
+        cfg, mp = self.cfg, self.mp
         B, S, _ = x.shape
-        cfg = self.cfg
-        q = self.wq(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.wk(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = self.wq(x)
+        local = self.wq.column and H % mp.size == 0
+        if self.wq.column and not local:
+            q = mp.gather(q, -1)
+        hq = q.shape[-1] // hd
+        q = q.reshape(B, S, hq, hd)
+        k, v = self.wk(x), self.wv(x)
+        if self.wk.column and not (local and K % mp.size == 0):
+            k, v = mp.gather(k, -1), mp.gather(v, -1)
+        if local and k.shape[-1] == cfg.kv_dim:
+            # every kv head, replicated: keep those this rank's heads read
+            k, v = mp.enter(k), mp.enter(v)
+            G, h0 = H // K, mp.rank * hq
+            if hq % G == 0 or G % hq == 0:
+                idx = torch.arange(h0 // G, h0 // G + max(1, hq // G), device=x.device)
+            else:
+                idx = (h0 + torch.arange(hq, device=x.device)) // G
+            k = k.reshape(B, S, K, hd).index_select(2, idx)
+            v = v.reshape(B, S, K, hd).index_select(2, idx)
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
         if self.q_norm is not None:
-            q, k = self.q_norm(q), self.k_norm(k)
+            enter = mp.enter if local else (lambda t: t)
+            q = self.q_norm(q, enter(self.q_norm.scale))
+            k = self.k_norm(k, enter(self.k_norm.scale))
         return (apply_rope(q, positions, self.theta),
                 apply_rope(k, positions, self.theta), v)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
         """Train mode (``attention_forward``): causal (windowed for a local
-        layer) attention over the whole sequence, x [B,S,D] -> [B,S,D]."""
+        layer) attention over the whole sequence, x [B,S,D] -> [B,S,D]
+        (this rank's block of the sequence where ``seq_cut``)."""
         B, S, _ = x.shape
-        q, k, v = self._project_qkv(x, torch.arange(S, device=x.device))
+        positions = torch.arange(S, device=x.device)
+        q, k, v = self._project_qkv(x, positions)
         out = flash_attention(q, k, v, causal=True, window=self.window)
-        return self.wo(out.reshape(B, S, self.cfg.q_dim))
+        return self.wo(out.reshape(B, S, -1), seq_cut)
 
     def prefill(self, x: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence attention and the cache filled for decoding.

@@ -4,6 +4,22 @@ unembedding), gated MLP, logit softcap.
 Counterpart of ``repro.models.layers``. Dense kernels keep the JAX package's
 ``[in, out]`` orientation (``y = x @ kernel + bias``), so converted weights
 are copied as they are, with no transpose.
+
+Tensor parallelism: a model built for a rank of a model group
+(``models.model.CausalLM(..., mp=...)``) holds each leaf cut as its
+``param_specs`` says, and every layer reads its cut from its own shapes. A
+``Dense`` whose kernel is cut on its output dim is column-parallel: its
+replicated input enters the cut computation (``ModelParallel.enter``:
+identity forward, all-reduce of the input's gradient) and it gives this
+rank's block of the output. One cut on its input dim is row-parallel: it
+takes this rank's block of its input (cutting a whole input with
+``split``), and its partial sums are all-reduced (``reduce``: identity
+backward), or reduce-scattered over the sequence where the residual stream
+is cut on it. ``Embedding`` is vocab-parallel where its table is cut on
+the vocabulary: an id outside the rank's rows gives 0, then an all-reduce;
+``unembed`` then gives the rank's block of the vocabulary's logits. With no
+model group (``partitioning.NONE``) every layer is the plain one and no
+collective is issued.
 """
 from __future__ import annotations
 
@@ -13,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.partitioning import NONE
+
 
 def _empty(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -20,11 +38,24 @@ def _empty(shape, dtype, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
+    mp = NONE           # the model's ModelParallel (set by CausalLM)
+
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = False,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
         self.kernel = _empty((in_dim, out_dim), dtype, device)
         self.bias = _empty((out_dim,), dtype, device) if bias else None
+
+    @property
+    def column(self) -> bool:
+        """Cut on its output dim over the model group."""
+        return self.kernel.shape[1] < self.out_dim
+
+    @property
+    def row(self) -> bool:
+        """Cut on its input dim over the model group."""
+        return self.kernel.shape[0] < self.in_dim
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """normal · 1/√in kernel drawn in float32, zero bias (as JAX)."""
@@ -34,8 +65,22 @@ class Dense(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
+        """x [..., in] (a row-parallel layer also takes its block [...,
+        in / model]) -> [..., out], or this rank's block of it where the
+        layer is column-parallel. ``seq_cut``: the output goes into a
+        residual stream cut on dim 1 (sequence parallelism), so it comes
+        out as this rank's block of the sequence."""
+        mp = self.mp
+        if self.column:
+            x = mp.enter(x)
+        elif self.row and x.shape[-1] == self.in_dim:
+            x = mp.split(x, -1)
         y = x @ self.kernel.to(x.dtype)
+        if self.row:
+            y = mp.reduce_scatter(y, 1) if seq_cut else mp.reduce(y)
+        elif seq_cut:
+            y = mp.split(y, 1)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -52,10 +97,13 @@ class RMSNorm(nn.Module):
     def reset_parameters(self) -> None:
         self.scale.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: torch.Tensor = None) -> torch.Tensor:
+        """``scale``: the scale to use in place of ``self.scale`` (the same
+        leaf after ``ModelParallel.enter``, where it acts on a cut)."""
         xf = x.float()
         var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps) * (1.0 + self.scale)
+        scale = self.scale if scale is None else scale
+        y = xf * torch.rsqrt(var + self.eps) * (1.0 + scale)
         return y.to(x.dtype)
 
 
@@ -132,14 +180,24 @@ class MLP(nn.Module):
         for d in (self.wi_gate, self.wi_up, self.wo):
             d.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.act(self.wi_gate(x)) * self.wi_up(x))
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
+        """Column-parallel ``wi_gate``/``wi_up`` and row-parallel ``wo``
+        where the ffn dim is cut (``seq_cut``: ``Dense.forward``'s)."""
+        return self.wo(self.act(self.wi_gate(x)) * self.wi_up(x), seq_cut)
 
 
 class Embedding(nn.Module):
+    mp = NONE
+
     def __init__(self, vocab: int, dim: int, *, dtype, device):
         super().__init__()
+        self.vocab = vocab
         self.table = _empty((vocab, dim), dtype, device)
+
+    @property
+    def cut(self) -> bool:
+        """The table's rows are cut over the model group."""
+        return self.table.shape[0] < self.vocab
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """normal · 0.02, drawn in float32 (as JAX)."""
@@ -148,10 +206,19 @@ class Embedding(nn.Module):
         self.table.copy_(w.mul_(0.02))
 
     def forward(self, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return self.table[tokens].to(compute_dtype)
+        if not self.cut:
+            return self.table[tokens].to(compute_dtype)
+        n = self.table.shape[0]
+        local = tokens - self.mp.rank * n
+        inside = (local >= 0) & (local < n)
+        x = self.table[local.clamp(0, n - 1)].to(compute_dtype)
+        return self.mp.reduce(x * inside[..., None].to(compute_dtype))
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits against the table (tied head): ``x @ table.T`` in x's dtype."""
+        """Logits against the table (tied head): ``x @ table.T`` in x's dtype
+        (this rank's vocabulary block where the table is cut)."""
+        if self.cut:
+            x = self.mp.enter(x)
         return x @ self.table.to(x.dtype).T
 
 

@@ -20,6 +20,19 @@ own model.
 
 Each takes token ids ``[B, S]`` (``[B, 1]`` a decode step), or for an
 embeddings arch float inputs ``[B, S, D]`` (``[B, 1, D]``).
+
+Tensor parallelism (``CausalLM(cfg, mp=...)``, train mode): the model of a
+rank holds every leaf cut as ``param_specs`` says on the rank's mesh
+(``ModelParallel``), and its layers issue the collectives (see
+``models.layers``). The residual stream stays replicated over the model
+group. Under ``sequence_parallel`` (where S divides by the group, as
+``make_constrain`` cuts ``residual``) it is cut on the sequence: each block
+norms its block of the sequence, all-gathers it before the mixer (and the
+MLP or MoE) and takes its block of the output back by a reduce-scatter
+after a row-parallel product (by ``split`` after a replicated one: the
+xLSTM mixers, the MoE). The head is column-parallel, or ``unembed`` for
+tied embeddings, so the logits are this rank's block of the vocabulary; the
+logit softcap acts on the block.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRUBlock, init_rglru_cache
 from repro_torch.models.xlstm import (MLSTMBlock, SLSTMBlock, init_mlstm_cache,
                                       init_slstm_cache)
+from repro_torch.sharding.partitioning import NONE, ModelParallel
 
 _PORTED = ("attn", "local", "rglru", "mlstm", "slstm")
 _WITH_MLP = ("attn", "local", "rglru")
@@ -65,6 +79,7 @@ class Block(nn.Module):
     model's argument, one group in prefill and decode) for ``attn``/``local``
     when ``cfg.moe`` is set; for ``mlstm``/``slstm`` the mixer alone,
     ``x + mixer(pre_norm(x))``."""
+    mp = NONE
 
     def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -93,23 +108,29 @@ class Block(nn.Module):
                 self.mlp_norm.reset_parameters()
                 ffn.reset_parameters(generator)
 
-    def forward(self, x, moe_groups: int = 1, moe_mean=None) -> Tuple[torch.Tensor, Aux]:
+    def forward(self, x, moe_groups: int = 1, moe_mean=None,
+                seq_cut: bool = False) -> Tuple[torch.Tensor, Aux]:
         """Train mode (``apply_block(mode="train")``): x [B,S,D] -> ([B,S,D],
         the MoE's auxiliary losses, or {}). ``moe_mean`` is ``MoE.forward``'s
-        ``mean``."""
-        return self._finish(x, self.mixer(self.pre_norm(x)), with_aux=True,
-                            groups=moe_groups, mean=moe_mean)
+        ``mean``. ``seq_cut``: x is this rank's block of the sequence
+        (sequence parallelism), and so is the output."""
+        y = self.mixer(self._whole(self.pre_norm(x), seq_cut), seq_cut)
+        return self._finish(x, y, with_aux=True, groups=moe_groups, mean=moe_mean,
+                            seq_cut=seq_cut)
+
+    def _whole(self, h, seq_cut: bool):
+        return self.mp.gather(h, 1) if seq_cut else h
 
     def _finish(self, x, y, with_aux: bool, groups: int = 1,
-                mean=None) -> Tuple[torch.Tensor, Aux]:
+                mean=None, seq_cut: bool = False) -> Tuple[torch.Tensor, Aux]:
         x = x + y
         if self.moe is not None:
-            y2, aux = self.moe(self.mlp_norm(x), groups=groups, with_aux=with_aux,
-                               mean=mean)
-            return x + y2, aux
+            y2, aux = self.moe(self._whole(self.mlp_norm(x), seq_cut), groups=groups,
+                               with_aux=with_aux, mean=mean)
+            return x + (self.mp.split(y2, 1) if seq_cut else y2), aux
         if self.mlp is None:
             return x, {}
-        return x + self.mlp(self.mlp_norm(x)), {}
+        return x + self.mlp(self._whole(self.mlp_norm(x), seq_cut), seq_cut), {}
 
     def prefill(self, x, max_len: int):
         y, cache = self.mixer.prefill(self.pre_norm(x), max_len)
@@ -128,11 +149,13 @@ class CausalLM(nn.Module):
     still has the ``embed`` table, unused, as the JAX ``init_params`` draws
     it and a checkpoint carries it."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, mp: ModelParallel = NONE):
         super().__init__()
         _check_supported(cfg)
         device = resolve_device(device)
-        self.cfg = cfg
+        self.cfg, self.mp = cfg, mp
+        cut = mp.size > 1 or mp.data_size > 1
+        final, device = device, (torch.device("meta") if cut else device)
         dtype = getattr(torch, cfg.param_dtype)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype=dtype,
@@ -148,6 +171,24 @@ class CausalLM(nn.Module):
         # for d 2560), as JAX multiplies by a compute-dtype scalar
         self.embed_scale = torch.tensor(math.sqrt(cfg.d_model),
                                         dtype=self.compute_dtype).item()
+        if cut:
+            self._cut_parameters(final)
+
+    def _cut_parameters(self, device) -> None:
+        """Re-allocate every parameter at this rank's cut (``param_specs``
+        on the rank's ``ModelParallel``), on ``device``, and give every
+        module the context."""
+        from repro_torch.sharding import partitioning as pt
+        specs = pt.param_specs(pt.param_shape_tree(self), self.cfg, self.mp)
+        for name, p in list(self.named_parameters()):
+            key, r = jax_leaf(name, self.cfg)
+            spec = pt.layer_spec(specs[key.replace(".", "/")], r is not None)
+            shape = pt.local_cut(p, spec, self.mp.coords(), self.mp).shape
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(owner), leaf, nn.Parameter(
+                torch.empty(shape, dtype=p.dtype, device=device), requires_grad=False))
+        for module in self.modules():
+            module.mp = self.mp
 
     @property
     def device(self) -> torch.device:
@@ -155,7 +196,7 @@ class CausalLM(nn.Module):
 
     def copy_to(self, device) -> "CausalLM":
         """A copy of this model with its parameters on ``device``."""
-        other = CausalLM(self.cfg, device=device)
+        other = CausalLM(self.cfg, device=device, mp=self.mp)
         other.load_state_dict(self.state_dict())
         return other
 
@@ -166,19 +207,33 @@ class CausalLM(nn.Module):
             x = self.embed(inputs, self.compute_dtype)
         return x * self.embed_scale if self.cfg.tie_embeddings else x
 
-    def _head_out(self, x):
+    def _head_out(self, x, seq_cut: bool = False):
+        """Logits in float32, softcapped: this rank's block of the
+        vocabulary where the head (or the tied table) is cut, except with
+        codebooks, whose logits are gathered whole."""
         x = self.final_norm(x)
+        if seq_cut:
+            x = self.mp.gather(x, 1)
         logits = self.embed.unembed(x) if self.head is None else self.head(x)
         if self.cfg.num_codebooks:
+            if self.head.column:
+                logits = self.mp.gather(logits, -1)
             logits = logits.unflatten(-1, (self.cfg.num_codebooks, self.cfg.vocab_size))
         return softcap(logits.float(), self.cfg.logit_softcap)
 
-    def _repeat(self, x, r: int, moe_groups: int = 1,
-                moe_mean=None) -> Tuple[torch.Tensor, List[Aux]]:
+    def seq_cut_parameters(self) -> List[str]:
+        """The replicated parameters that act on the sequence-cut residual
+        under sequence parallelism (the blocks' norms and the final norm):
+        each rank's gradient of them is a partial sum."""
+        return [n for n, _ in self.named_parameters()
+                if n.startswith("final_norm.") or ".pre_norm." in n or ".mlp_norm." in n]
+
+    def _repeat(self, x, r: int, moe_groups: int = 1, moe_mean=None,
+                seq_cut: bool = False) -> Tuple[torch.Tensor, List[Aux]]:
         P = len(self.cfg.block_pattern)
         auxs = []
         for block in self.layers[r * P:(r + 1) * P]:
-            x, aux = block(x, moe_groups, moe_mean)
+            x, aux = block(x, moe_groups, moe_mean, seq_cut)
             auxs.append(aux)
         return x, auxs
 
@@ -197,24 +252,27 @@ class CausalLM(nn.Module):
         ``MoE.forward``'s ``mean``, for a data-parallel rank's share of
         the batch."""
         x = self._embed_in(tokens)
+        seq_cut = self.mp.seq_cut(x.shape[1])
+        if seq_cut:
+            x = self.mp.split(x, 1)
         P = len(self.cfg.block_pattern)
         reps = self.cfg.num_layers // P
         ckpt = remat != "none"
         auxs: List[Aux] = []
         for r in range(reps):
-            args = (x, r, moe_groups, moe_mean)
+            args = (x, r, moe_groups, moe_mean, seq_cut)
             x, a = (checkpoint(self._repeat, *args, use_reentrant=False) if ckpt
                     else self._repeat(*args))
             auxs.extend(a)
         for block in self.layers[reps * P:]:
-            args = (x, moe_groups, moe_mean)
+            args = (x, moe_groups, moe_mean, seq_cut)
             x, a = checkpoint(block, *args, use_reentrant=False) if ckpt else block(*args)
             auxs.append(a)
         total: Aux = {}
         for a in auxs:
             for k, v in a.items():
                 total[k] = total[k] + v if k in total else v
-        return self._head_out(x), total
+        return self._head_out(x, seq_cut), total
 
 
 def jax_leaf(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
@@ -233,22 +291,44 @@ def jax_leaf(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
     return f"tail.t{i - reps * P}.{leaf}", None
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> CausalLM:
-    """Random weights drawn on ``device`` (the card unless ``"cpu"``) as
+def _draw_order(model: CausalLM):
+    """``init_params``' order: (part, whether it draws from the generator)."""
+    yield "embed", True
+    yield "final_norm", False
+    if model.head is not None:
+        yield "head", True
+    for i in range(len(model.layers)):
+        yield f"layers.{i}", True
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, *,
+                mp: ModelParallel = NONE, init_device=None) -> CausalLM:
+    """Random weights, on ``device`` (the card unless ``"cpu"``), drawn as
     ``repro.models.model.init_params`` draws them: dense kernels normal·1/√in,
     embedding normal·0.02 (both drawn in float32, stored in ``param_dtype``),
     zero biases, RMSNorm scales zero (QK-norm's too), LayerNorm scales one;
     the MoE's router (float32) and expert leaves, and the xLSTM blocks' own
-    leaves, as their ``reset_parameters`` say."""
-    model = CausalLM(cfg, device=device)
+    leaves, as their ``reset_parameters`` say. With ``mp``, cut to its rank.
+
+    Each part (the embedding, the final norm, the head, a block) is drawn
+    whole on ``init_device`` (``device`` by default; ``generator``'s
+    device), in that order, its cut copied into the model and the part
+    dropped: beside the model a rank holds one whole part, never the whole
+    model."""
+    from repro_torch.sharding import partitioning as pt
+    model = CausalLM(cfg, device=device, mp=mp)
+    init_device = model.device if init_device is None else resolve_device(init_device)
+    whole = CausalLM(cfg, device="meta")
+    specs = pt.param_specs(pt.param_shape_tree(whole), cfg, mp)
     with torch.no_grad():
-        model.embed.reset_parameters(generator)
-        model.final_norm.reset_parameters()
-        if model.head is not None:
-            model.head.reset_parameters(generator)
-        for block in model.layers:
-            block.reset_parameters(generator)
+        for name, draws in _draw_order(whole):
+            part = whole.get_submodule(name).to_empty(device=init_device)
+            part.reset_parameters(generator) if draws else part.reset_parameters()
+            for leaf, p in part.named_parameters(prefix=name):
+                key, r = jax_leaf(leaf, cfg)
+                spec = pt.layer_spec(specs[key.replace(".", "/")], r is not None)
+                model.get_parameter(leaf).copy_(pt.local_cut(p, spec, mp.coords(), mp))
+            part.to_empty(device="meta")
     return model
 
 

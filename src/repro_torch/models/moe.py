@@ -21,6 +21,17 @@ Two things differ in form from the JAX code, not in what they compute:
   card would sum in another order from run to run. The output is the same
   bits on every call.
 
+Under tensor parallelism the experts are cut as ``param_specs`` says.
+Expert-TP: ``wi_gate``/``wi_up`` on the ffn dim and ``wo`` on its input
+dim over the model group; the buffer enters the cut, and the experts'
+output is all-reduced before the combine (``moe_ff``). Expert parallelism
+(``expert_parallel``): the expert dim over the data group; each data rank
+routes its own tokens (one group), the ``[G, E, cap, D]`` buffer goes
+through an all-to-all over the data group so that each rank runs its
+experts on every group's slots, and a second all-to-all sends the outputs
+back (``moe_ep_buf``, ``moe_ep_ff``). Routing, dispatch and the combine are
+the same code, in the same order, on every layout.
+
 Auxiliary losses, as JAX: ``moe_lb`` (Switch load balance,
 ``E * sum(mean prob * mean assignments) / top_k``) and ``moe_z`` (router
 z-loss, the mean squared log-sum-exp of the router logits).
@@ -36,6 +47,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import Dense, _empty, activation
+from repro_torch.sharding.partitioning import NONE
 
 Coords = Tuple[torch.Tensor, ...]
 
@@ -107,6 +119,7 @@ class MoE(nn.Module):
     """``moe.router.kernel`` [D, E] (float32), ``moe.wi_gate`` and
     ``moe.wi_up`` [E, D, F], ``moe.wo`` [E, F, D] (``param_dtype``): the JAX
     leaves and layout."""
+    mp = NONE
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -142,11 +155,21 @@ class MoE(nn.Module):
         """Each expert's gated MLP over its slots: buf [G, E, cap, D] ->
         [G, E, cap, D]. The weights are cast only where they are not in the
         buffer's dtype already (in bf16 they are used as stored)."""
+        mp = self.mp
+        ep = self.wi_gate.shape[0] < self.m.num_experts
+        tp = self.wi_gate.shape[-1] < self.m.d_ff_expert
+        if ep:
+            buf = mp.to_experts(buf)
+        if tp:
+            buf = mp.enter(buf)
         G, E, cap, D = buf.shape
         wg, wu, wo = (w.to(buf.dtype) for w in (self.wi_gate, self.wi_up, self.wo))
         xe = buf.transpose(0, 1).reshape(E, G * cap, D)
         h = self.act(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
-        return torch.bmm(h, wo).reshape(E, G, cap, D).transpose(0, 1)
+        out = torch.bmm(h, wo).reshape(E, G, cap, D).transpose(0, 1)
+        if tp:
+            out = mp.reduce(out)
+        return mp.from_experts(out) if ep else out
 
     def forward(self, x: torch.Tensor, *, groups: int = 0, with_aux: bool = True,
                 mean=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

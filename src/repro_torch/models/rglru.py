@@ -17,6 +17,13 @@ The train-mode and prefill recurrences go through the port's ``rglru_scan``
 float32 ``a`` and ``b``. The decode step is plain
 PyTorch, as the JAX package has no kernel there either, and it updates the
 cache dict in place: ``h`` and ``conv`` are replaced.
+
+Under tensor parallelism (train mode) the channels are cut over the model
+group: ``w_gate_in`` and ``w_rnn_in`` are column-parallel, the conv and
+``lam`` hold the rank's W / model channels, the gate matrices ``w_rg`` and
+``w_ig`` are row-parallel [W, W] (their product is all-reduced, then the
+rank keeps its channels), the scan runs on [B, S, W / model] and
+``w_out`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.models.layers import Dense, _empty, activation
 from repro_torch.models.xlstm import _normal, causal_conv
+from repro_torch.sharding.partitioning import NONE
 
 Cache = Dict[str, torch.Tensor]
 _C = 8.0
@@ -45,6 +53,8 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, *, dtype=torch.bfloat16,
 
 
 class RGLRUBlock(nn.Module):
+    mp = NONE
+
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
         w, d = cfg.lru_width, cfg.d_model
@@ -74,21 +84,26 @@ class RGLRUBlock(nn.Module):
     def _gates(self, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """u [..., W] -> float32 (a, b) of the recurrence h = a h + b. The
         dense products run in u's dtype, the rest in float32."""
-        r = torch.sigmoid(self.w_rg(u).float())
-        i = torch.sigmoid(self.w_ig(u).float())
+        r = torch.sigmoid(self._channels(self.w_rg(u), u).float())
+        i = torch.sigmoid(self._channels(self.w_ig(u), u).float())
         log_a = -_C * F.softplus(self.lam) * r
         a = torch.exp(log_a)
         multiplier = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
         return a, multiplier * i * u.float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _channels(self, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """A gate's product, replicated after the all-reduce, narrowed to
+        the rank's channels where u holds a block of them."""
+        return self.mp.split(y, -1) if u.shape[-1] < y.shape[-1] else y
+
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
         """Train mode (``rglru_block_forward``): x [B,S,D] -> [B,S,D], the
-        scan from a zero state."""
+        scan from a zero state (``seq_cut``: ``Dense.forward``'s)."""
         gate = self.act(self.w_gate_in(x))
         u = causal_conv(self.w_rnn_in(x), self.rg_conv_w, self.rg_conv_b)
         a, b = self._gates(u)
         h = rglru_scan(a, b, torch.zeros_like(b[:, 0]))        # float32
-        return self.w_out(gate * h.to(x.dtype))
+        return self.w_out(gate * h.to(x.dtype), seq_cut)
 
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         """x [B,S,D] -> (y [B,S,D], cache) from a zero state

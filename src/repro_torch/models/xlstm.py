@@ -14,6 +14,13 @@ decode step and the sLSTM recurrence are plain PyTorch: the JAX package has
 no kernel for either (``lax.scan`` for sLSTM). Decode steps update the cache
 dict in place: ``C`` and ``n`` are rescaled and accumulated in their own
 storage, ``m`` and ``conv`` (and the sLSTM ``h, c, n, m``) are replaced.
+
+Under tensor parallelism the mixers' own leaves are replicated
+(``param_specs``' ``_XLSTM``): every rank of the model group computes the
+recurrence whole on the same rows, and their gradients are each rank's own,
+not summed over the group. Only the mLSTM ``w_down`` (row-parallel: the
+rank's block of h) and the sLSTM ``w_ff_up``/``w_ff_down`` (column then
+row, where the ffn width divides) are cut.
 """
 from __future__ import annotations
 
@@ -119,18 +126,19 @@ class MLSTMBlock(nn.Module):
         f_log = F.logsigmoid(self.w_f(xc.float()))
         return xu, g, q, k, v, i_log, f_log
 
-    def _out(self, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    def _out(self, h: torch.Tensor, g: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
         """headnorm, the silu(gate) product and the down projection.
-        h: [..., H, dv]; g: [..., inner]."""
+        h: [..., H, dv]; g: [..., inner] (``seq_cut``: ``Dense.forward``'s)."""
         h = headnorm(h, self.out_scale)
         h = (h * F.silu(g).reshape(h.shape)).reshape(g.shape)
-        return self.w_down(h)
+        return self.w_down(h, seq_cut)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
         """Train mode (``mlstm_block_forward``): x [B,S,D] -> [B,S,D]. On the
         card ``mlstm_chunk`` raises under autograd (no backward kernel yet)."""
         _, g, q, k, v, i_log, f_log = self._gate_and_qkvif(x)
-        return self._out(mlstm_chunk(q, k, v, i_log, f_log, chunk=PREFILL_CHUNK), g)
+        return self._out(mlstm_chunk(q, k, v, i_log, f_log, chunk=PREFILL_CHUNK), g,
+                         seq_cut)
 
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
         """x [B,S,D] -> (y [B,S,D], cache). The cache holds the final state
@@ -240,26 +248,33 @@ class SLSTMBlock(nn.Module):
         return tuple(w(x).float().reshape(shape)
                      for w in (self.w_z, self.w_i, self.w_f, self.w_o))
 
-    def _out(self, h: torch.Tensor, dtype) -> torch.Tensor:
-        """h [B,S,H,dh] float32 -> headnorm, then the FFN."""
+    def _out(self, h: torch.Tensor, dtype, seq_cut: bool = False) -> torch.Tensor:
+        """h [B,S,H,dh] float32 -> headnorm, then the FFN (``seq_cut``:
+        ``Dense.forward``'s)."""
         h = headnorm(h, self.out_scale).flatten(-2).to(dtype)
-        return self.w_ff_down(self.act(self.w_ff_up(h)))
+        return self.w_ff_down(self.act(self.w_ff_up(h)), seq_cut)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
         """Train mode (``slstm_block_forward``): x [B,S,D] -> [B,S,D]."""
-        return self.prefill(x)[0]
+        return self._out(self._recur(x)[0], x.dtype, seq_cut)
 
-    def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
-        """x [B,S,D]: the recurrence step by step over S from a zero state
-        (``slstm_block_forward``); returns y and the final state.
-        ``max_len`` is unused."""
+    def _recur(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """The recurrence step by step over S from a zero state: h [B,S,H,dh]
+        and the final state."""
         xz, xi, xf, xo = self._inputs(x)
         state = init_slstm_cache(self.cfg, x.shape[0], device=x.device)
         hs = []
         for s in range(x.shape[1]):
             state = slstm_cell(self.rec, xz[:, s], xi[:, s], xf[:, s], xo[:, s], state)
             hs.append(state["h"])
-        return self._out(torch.stack(hs, dim=1), x.dtype), state
+        return torch.stack(hs, dim=1), state
+
+    def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
+        """x [B,S,D]: the recurrence step by step over S from a zero state
+        (``slstm_block_forward``); returns y and the final state.
+        ``max_len`` is unused."""
+        h, state = self._recur(x)
+        return self._out(h, x.dtype), state
 
     def decode(self, x: torch.Tensor, cache: Cache,
                cur_pos: int = 0) -> Tuple[torch.Tensor, Cache]:

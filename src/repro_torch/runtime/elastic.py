@@ -20,19 +20,24 @@ caller's process with no process group, and no collective is issued, as
 XLA issues none over an axis of extent 1.
 
 World of N > 1 (``["cpu"] * N`` for N CPU ranks, or N distinct cards): N
-worker processes, spawned with ``torch.multiprocessing``, rank r on the
-r-th device of the mesh, join one process group (``gloo`` on the CPU,
-``nccl`` on cards) through a ``FileStore`` under ``<ckpt_dir>/.ranks/``.
-The trainer in the caller's process commands them over pipes (train n
-steps, checkpoint, stop) and gets rank 0's metrics back. Each rank trains
-on its rows of the global batch with ZeRO-1 (``training.data_parallel``).
-A fresh start draws the weights from ``seed`` the same way on every rank.
-Every wait has a timeout (``TIMEOUT_S``, the process group's too); a rank
-that raises or dies fails the caller's call with its traceback or exit
-code, and the trainer stops the other ranks.
+worker processes, forked from a preloaded server (``process_context``),
+rank r on the r-th device of the mesh (rank r = d · model_size + m), join
+one process group (``gloo`` on the CPU, ``nccl`` on cards) through a
+``FileStore`` under ``<ckpt_dir>/.ranks/``, and each builds its mesh's
+model group and data group. The trainer in the caller's process commands them over pipes
+(train n steps, checkpoint, stop) and gets rank 0's metrics back. Each rank
+holds its model's cut over the model group (tensor parallelism, with
+``TrainConfig.sequence_parallel`` and an MoE's ``expert_parallel``; see
+``training.data_parallel``) and trains on its data index's rows of the
+global batch with ZeRO-1. A fresh start draws the whole weights from
+``seed`` the same way on every rank, then cuts them. Every wait has a
+timeout (``TIMEOUT_S``, the process group's too); a rank that raises or
+dies fails the caller's call with its traceback or exit code, and the
+trainer stops the other ranks.
 
-``model_size`` > 1 (tensor parallelism over the ``model`` axis) raises
-``NotImplementedError``: ROADMAP.md, queue 1 item 4b.
+A resize rebuilds both groups: the model axis keeps ``model_size`` (TP
+groups stay whole) and the data axis takes what the devices allow. Fewer
+devices than ``model_size`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike
 from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.sharding import partitioning as pt
 from repro_torch.training import data_parallel as dp
 from repro_torch.training.train_step import (TrainState, init_model, init_state,
                                              make_train_step)
@@ -69,15 +75,12 @@ def _mesh_from_devices(devices: Sequence[DeviceLike], model_size: int,
     elastic grant is rarely a perfect divisor; surplus devices idle until
     the next resize — they are not lost, just unused this interval).
     """
-    if model_size != 1:
-        raise NotImplementedError(
-            f"model_size {model_size}: tensor parallelism over the model axis waits for "
-            "ROADMAP.md, queue 1 item 4b")
     devices = list(devices)
     n = len(devices)
     dp = n // model_size
     if dp < 1:
-        raise ValueError(f"{n} device(s) for model_size {model_size}")
+        raise ValueError(f"{n} device(s) for model_size {model_size}: a model group "
+                         f"needs {model_size}")
     if global_batch is not None:
         while dp > 1 and global_batch % dp:
             dp -= 1
@@ -246,12 +249,22 @@ def _stop_processes(procs, store_dir):
         pass
 
 
+def process_context():
+    """The multiprocessing context of the rank processes: a forkserver that
+    has imported this module and a first step's lazy imports
+    (``torch._dynamo``, through activation checkpointing), so that a world
+    starts in about a second, not ten."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__, "torch._dynamo"])
+    return ctx
+
+
 class _World:
     """N rank processes and the caller's end of their pipes."""
 
     def __init__(self, job: _Job, mesh: Mesh):
-        import torch.multiprocessing as mp
-        ctx = mp.get_context("spawn")
+        ctx = process_context()
         self.store_dir = os.path.join(job.ckpt_dir, ".ranks", uuid.uuid4().hex)
         os.makedirs(self.store_dir)
         devices = [str(d) for d in mesh.devices.flat]
@@ -322,20 +335,23 @@ class _World:
 
 
 class _Rank:
-    """One rank's share of the trainer: the whole model, its ZeRO-1 cut of
-    the optimizer state, its rows of each batch."""
+    """One rank's share of the trainer: its cut of the model over the model
+    group, its ZeRO-1 cut of the optimizer state, its rows of each batch."""
 
     def __init__(self, job: _Job, mesh: Mesh, rank: int, device: torch.device):
         self.job, self.device = job, device
-        self.comm = dp.Comm(mesh.group("data"), mesh.shape["data"],
-                            rank // mesh.shape["model"])
+        moe = job.cfg.moe
+        mp = pt.model_parallel(mesh, sequence_parallel=job.tcfg.sequence_parallel,
+                               expert_parallel=moe is not None and moe.expert_parallel)
+        self.comm = dp.Comm(mesh.group("data"), mesh.shape["data"], mesh.coords()["data"],
+                            mesh, mp)
         self.is_first = rank == 0
         layout_of = lambda model: dp.leaf_layout(model, mesh, job.tcfg.zero1)  # noqa: E731
         self.step = ckpt.latest_step(job.ckpt_dir)
         if self.step is None:
             self.step = 0
             model = init_model(job.cfg, seed=job.seed, device=device,
-                               init_device=job.init_device)
+                               init_device=job.init_device, mp=mp)
             self.layout = layout_of(model)
             self.state = dp.fresh_state(model, self.layout, self.comm)
         else:
@@ -375,7 +391,9 @@ def _rank_main(rank: int, shape, devices: List[str], store_path: str, conn, job:
         if device.type == "cuda":
             torch.cuda.set_device(device)
         else:
-            torch.set_num_threads(max(1, torch.get_num_threads() // world))
+            # one thread: MKL's threaded float32 products on a rank's cut
+            # sum in an order that changes from run to run
+            torch.set_num_threads(1)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 store=dist.FileStore(store_path, world), rank=rank,
                                 world_size=world,

@@ -5,6 +5,11 @@ Each replica holds the model's parameters on one device and serves batched
 greedy decoding. The balancer routes requests to the replica with the fewest
 outstanding tokens (the paper's LVS least-connection policy); the §III-C
 80% utilization rule decides replica count against the pool's capacity.
+
+Replicas follow the granted device objects, as the JAX pool follows its
+devices by identity: a ``DevicePool`` over ``["cpu"] * N`` holds N distinct
+``torch.device("cpu")`` entries, and two of them granted give two replicas
+(on the same CPU), as two cards would.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ class Replica:
     def __init__(self, cfg: ModelConfig, model: CausalLM, device,
                  timings: Optional[List[dict]] = None):
         self.cfg = cfg
+        self.slot = device          # the granted device object
         self.device = resolve_device(device)
         # parameters move to the replica's device once (no copy if already there)
         self.model = model if model.device == self.device else model.copy_to(self.device)
@@ -71,12 +77,12 @@ class ServingPool:
 
     # -------------------------------------------------------------- scaling
     def scale_to(self, devices: Sequence):
-        """Reconcile replicas with the granted device set."""
-        want = [resolve_device(d) for d in devices]
-        self.replicas = [r for r in self.replicas if r.device in want]
-        have = {r.device for r in self.replicas}
-        for d in want:
-            if d not in have:
+        """Reconcile replicas with the granted device set (by identity)."""
+        want = {id(d): d for d in devices}
+        self.replicas = [r for r in self.replicas if id(r.slot) in want]
+        have = {id(r.slot) for r in self.replicas}
+        for d in devices:
+            if id(d) not in have:
                 self.replicas.append(Replica(self.cfg, self.model, d,
                                              timings=self.timings))
 

@@ -17,18 +17,38 @@ model's parameters so. A spec is a ``Spec``: one entry a dim, each an axis
 name, ``None`` (not sharded) or a tuple of names (sharded over their
 product).
 
-The port's trainer reads ``zero1_specs`` for its data axis alone: where a
-leaf's spec names ``data`` on a dim, m, v and the float32 master are cut
-along that dim over the data group (``training.data_parallel``). The
-placement of activations for GSPMD (``make_constrain``, ``to_shardings``)
-has no counterpart here: on the data axis alone it changes nothing, and it
-comes with tensor parallelism over the ``model`` axis (ROADMAP.md, queue 1
-item 4b).
+The port lays a leaf out by its spec explicitly: ``local_cut`` (the
+counterpart of ``to_shardings`` + ``jax.device_put``) narrows a whole leaf
+to one rank's block, and ``gather_cut`` puts the whole leaf back together
+from every rank's block, as a checkpoint needs it. The parameters of a rank
+are their ``param_specs`` cut; the optimizer state is its ``zero1_specs``
+cut (``training.data_parallel``).
+
+``make_constrain``'s counterpart is ``ModelParallel``: the context the
+port's model takes in place of the JAX hook. It holds the model group (its
+size and this rank's index), ``sequence_parallel`` and the data group that
+expert parallelism sends tokens over, and it issues, as
+``torch.autograd.Function``s, the collectives that GSPMD issues for the
+JAX model: ``enter`` (identity forward, all-reduce of the gradient: a
+replicated tensor going into a cut computation), ``reduce`` (all-reduce
+forward, identity backward: partial sums of a row-parallel product),
+``gather`` / ``split`` (a dim cut over the group to whole and back),
+``reduce_scatter`` (partial sums to this rank's block of the sequence,
+under sequence parallelism), and the experts' all-to-all over the data
+group. A tensor is either replicated
+(every model rank holds it, and in the backward pass its whole gradient)
+or cut (each rank its block or its partial sum); these are the only
+crossings. Over a group of one rank each is the identity: no collective is
+issued.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 
@@ -283,3 +303,258 @@ def data_dim(spec: Spec):
         if a == "data" or (isinstance(a, tuple) and "data" in a):
             return i
     return None
+
+
+def model_dim(spec: Spec):
+    """The dim a spec shards over the ``model`` axis, or ``None``."""
+    for i, a in enumerate(spec):
+        if a == "model" or (isinstance(a, tuple) and "model" in a):
+            return i
+    return None
+
+
+def layer_spec(spec: Spec, stacked: bool) -> Spec:
+    """The spec of one layer of a leaf (the repeat dim dropped where the
+    leaf is stacked)."""
+    return Spec(*spec[1:]) if stacked else spec
+
+
+# ------------------------------------------------------------- layouts
+
+
+def _block(axes, coords: Mapping[str, int], shape: Mapping[str, int]) -> Tuple[int, int]:
+    """(extent, index) of the mesh block that ``axes`` (a name or a tuple
+    of names, row-major) gives a rank at ``coords``."""
+    names = axes if isinstance(axes, tuple) else (axes,)
+    n, i = 1, 0
+    for a in names:
+        n, i = n * shape[a], i * shape[a] + coords[a]
+    return n, i
+
+
+def local_cut(full: torch.Tensor, spec: Spec, coords: Mapping[str, int], mesh) -> torch.Tensor:
+    """The block of ``full`` that the rank at ``coords`` (``mesh.coords()``)
+    holds under ``spec``: each dim the spec names is narrowed to the rank's
+    block of its axes (a view)."""
+    out = full
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            n, i = _block(axes, coords, mesh.shape)
+            size = full.shape[dim] // n
+            out = out.narrow(dim, i * size, size)
+    return out
+
+
+def gather_cut(parts: Sequence[torch.Tensor], spec: Spec, mesh) -> torch.Tensor:
+    """The inverse of ``local_cut``: the whole leaf from every rank's block,
+    ``parts`` in rank order (row-major over the mesh). Ranks that hold the
+    same block give it once."""
+    extents = [1 if a is None else _block(a, mesh.coords(0), mesh.shape)[0] for a in spec]
+    first = parts[0]
+    out = first.new_empty([s * n for s, n in zip(first.shape, extents)])
+    for rank, part in enumerate(parts):
+        coords = mesh.coords(rank)
+        view = out
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                _, i = _block(axes, coords, mesh.shape)
+                view = view.narrow(dim, i * part.shape[dim], part.shape[dim])
+        view.copy_(part)
+    return out
+
+
+# ----------------------------------------------------- model parallelism
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _narrow(x: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    n = x.shape[dim] // size
+    return x.narrow(dim, rank * n, n).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mp.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=mp.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return _all_gather(x, dim, mp.group, mp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _narrow(g, ctx.dim, ctx.mp.rank, ctx.mp.size), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return _narrow(x, dim, mp.rank, mp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.mp.group, ctx.mp.size), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return _reduce_scatter(x, dim, mp.group, mp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.mp.group, ctx.mp.size), None, None
+
+
+def _exchange(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """[A, E, ...] with E cut into ``size`` blocks: block j goes to rank j,
+    and the blocks that arrive are stacked by sender along dim 0 ->
+    [size · A, E / size, ...]."""
+    A, E = x.shape[:2]
+    send = x.reshape((A, size, E // size) + tuple(x.shape[2:])).transpose(0, 1).contiguous()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
+    return out.reshape((size * A, E // size) + tuple(x.shape[2:]))
+
+
+def _unexchange(y: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The inverse of ``_exchange``: [size · A, E / size, ...] -> [A, E, ...]."""
+    SA, e = y.shape[:2]
+    A = SA // size
+    out = torch.empty_like(y.contiguous())
+    dist.all_to_all_single(out, y.contiguous(), group=group)
+    out = out.reshape((size, A, e) + tuple(y.shape[2:])).transpose(0, 1)
+    return out.reshape((A, size * e) + tuple(y.shape[2:]))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, back):
+        ctx.group, ctx.size, ctx.back = group, size, back
+        return (_unexchange if back else _exchange)(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange if ctx.back else _unexchange)(g, ctx.group, ctx.size), None, None, None
+
+
+@dataclass(frozen=True)
+class ModelParallel:
+    """A rank's place in tensor and expert parallelism, and the collectives
+    of both (the port's ``make_constrain``). ``group``/``size``/``rank``:
+    the model group; ``data_group``/``data_size``: the data group, over
+    which the experts of an ``expert_parallel`` MoE are cut (extent 1
+    where they are not). ``NONE`` (one rank, no group) makes every method
+    the identity. ``shape`` and ``coords()`` make it the mesh that lays
+    out the rank's parameters (``param_specs``, ``local_cut``)."""
+    group: Any = None
+    size: int = 1
+    rank: int = 0
+    sequence_parallel: bool = False
+    data_group: Any = None
+    data_size: int = 1
+    data_rank: int = 0
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data_size, "model": self.size}
+
+    def coords(self) -> Dict[str, int]:
+        return {"data": self.data_rank, "model": self.rank}
+
+    def seq_cut(self, seq_len: int) -> bool:
+        """Whether the residual stream of a sequence of ``seq_len`` is cut
+        on the sequence dim (``make_constrain``'s rule for ``residual``)."""
+        return self.sequence_parallel and self.size > 1 and seq_len % self.size == 0
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor into a cut computation."""
+        return x if self.size == 1 else _Enter.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial sums -> their replicated sum."""
+        return x if self.size == 1 else _Reduce.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Blocks along ``dim`` -> the whole tensor, replicated."""
+        return x if self.size == 1 else _Gather.apply(x, self, dim)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A replicated tensor -> this rank's block along ``dim``."""
+        return x if self.size == 1 else _Split.apply(x, self, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Partial sums -> this rank's block of their sum along ``dim``."""
+        return x if self.size == 1 else _ReduceScatter.apply(x, self, dim)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group, no gradient."""
+        x = x.detach().clone()
+        if self.size > 1:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
+    def to_experts(self, buf: torch.Tensor) -> torch.Tensor:
+        """[G, E, ...] of this data rank's groups -> [G · data, E / data,
+        ...]: every group's slots of this rank's experts (``all_to_all``)."""
+        if self.data_size == 1:
+            return buf
+        return _AllToAll.apply(buf, self.data_group, self.data_size, False)
+
+    def from_experts(self, out: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``to_experts``."""
+        if self.data_size == 1:
+            return out
+        return _AllToAll.apply(out, self.data_group, self.data_size, True)
+
+
+NONE = ModelParallel()
+
+
+def model_parallel(mesh, *, sequence_parallel: bool = False,
+                   expert_parallel: bool = False) -> ModelParallel:
+    """The ``ModelParallel`` of this process's rank on ``mesh`` (``NONE``
+    outside a world)."""
+    if mesh.group("model") is None:
+        return NONE
+    coords = mesh.coords()
+    ep = expert_parallel and mesh.shape["data"] > 1
+    return ModelParallel(mesh.group("model"), mesh.shape["model"], coords["model"],
+                         sequence_parallel, mesh.group("data") if ep else None,
+                         mesh.shape["data"] if ep else 1, coords["data"] if ep else 0)

@@ -10,6 +10,12 @@ over the layers by the model's ``forward``: ``MOE_LB_COEF`` times the
 load-balance loss and ``MOE_Z_COEF`` times the router z-loss. An embeddings
 arch (musicgen-large) reads ``batch["embeds"]`` [B, S, D] in place of
 ``batch["tokens"]``; its codebook logits [B, S, C, V] take labels [B, S, C].
+
+A model cut over a model group gives this rank's block of the vocabulary's
+logits; ``cross_entropy`` is then vocab-parallel: the max and the sum of
+exponentials are all-reduced over the group, the label's logit comes from
+the rank that holds it (an all-reduce), and the log-sum-exp is shared by
+the loss and the z-loss.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
+from repro_torch.sharding.partitioning import NONE, ModelParallel
 from repro_torch.training.optimizer import OptState, adamw_update, init_opt_state
 
 Batch = Dict[str, torch.Tensor]
@@ -41,14 +48,15 @@ def train_state(model: M.CausalLM) -> TrainState:
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
-               init_device: DeviceLike = None) -> M.CausalLM:
+               init_device: DeviceLike = None, mp: ModelParallel = NONE) -> M.CausalLM:
     """``init_params`` drawn from ``seed`` on ``init_device`` (``device`` by
-    default), moved to ``device`` (the card unless ``"cpu"``). CUDA and CPU
-    generators draw different numbers from one seed."""
+    default) into a model on ``device`` (the card unless ``"cpu"``), cut to
+    ``mp``'s rank. CUDA and CPU generators draw different numbers from one
+    seed."""
     device = resolve_device(device)
     init_on = device if init_device is None else resolve_device(init_device)
-    model = M.init_params(cfg, torch.Generator(device=init_on).manual_seed(seed), init_on)
-    return model.copy_to(device) if init_on != device else model
+    return M.init_params(cfg, torch.Generator(device=init_on).manual_seed(seed), device,
+                         mp=mp, init_device=init_on)
 
 
 def init_state(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
@@ -57,10 +65,22 @@ def init_state(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     return train_state(init_model(cfg, seed=seed, device=device, init_device=init_device))
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss_coef: float):
-    """logits [..., V] float32; labels [...] int. (mean NLL + z-loss, NLL)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss_coef: float,
+                  mp: ModelParallel = NONE, vocab: int = 0):
+    """logits [..., V] float32; labels [...] int. (mean NLL + z-loss, NLL).
+    Where ``logits`` hold fewer than ``vocab`` entries they are rank
+    ``mp.rank``'s block of the vocabulary (vocab-parallel)."""
+    if vocab and logits.shape[-1] < vocab:
+        n = logits.shape[-1]
+        top = mp.max(logits.amax(dim=-1))
+        lse = torch.log(mp.reduce(torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+        local = labels.long() - mp.rank * n
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = mp.reduce(gold * inside)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = torch.mean(lse - gold)
     zl = torch.mean(torch.square(lse))
     return nll + z_loss_coef * zl, nll
@@ -75,7 +95,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, *, moe_groups: int = 1,
     def loss_fn(model: M.CausalLM, batch: Batch):
         logits, aux = model(_input_of(batch, cfg), remat=tcfg.remat, moe_groups=moe_groups,
                             moe_mean=moe_mean)
-        loss, nll = cross_entropy(logits, batch["labels"], tcfg.z_loss)
+        loss, nll = cross_entropy(logits, batch["labels"], tcfg.z_loss, model.mp,
+                                  cfg.vocab_size)
         if cfg.moe is not None:
             loss = loss + MOE_LB_COEF * aux["moe_lb"] + MOE_Z_COEF * aux["moe_z"]
         return loss, {"nll": nll}

@@ -2,7 +2,8 @@
 never falls back to the CPU when the card is asked for and missing. With both
 blocked it serves, trains (``python -m repro_torch.launch.train --reduced
 --device cpu --steps 2``), runs the campaign, gates its own traced
-``mix_tiny`` against the goldens with its own trace CLI, and runs the paper
+``mix_tiny`` against the goldens with its own trace CLI, runs the
+``elastic_serving`` runtime example on CPU entries, and runs the paper
 experiment."""
 import os
 import re
@@ -51,6 +52,8 @@ with tempfile.TemporaryDirectory() as tmp:
     assert trace.main(['regress', 'goldens/mix_tiny_traces', traces]) == 0
     first = sorted(f for f in os.listdir(traces) if f.endswith('.trace.jsonl'))[0]
     assert trace.main(['replay', os.path.join(traces, first)]) == 0
+from repro_torch.examples import elastic_serving
+assert elastic_serving.main(['--device', 'cpu', '--requests', '4']) == 0
 from repro_torch.core import experiment
 res = experiment.run_experiment(seed=0, sizes=(160,), horizon=2 * 86400.0)
 assert res['DC'][160].completed > 0 and res['SC'].submitted == res['DC'][160].submitted
@@ -73,7 +76,8 @@ def test_port_sources_import_no_jax_and_no_repro():
             "checkpoint/checkpointer.py", "runtime/elastic.py",
             "runtime/orchestrator.py", "configs/musicgen_large.py",
             "launch/train.py", "launch/mesh.py", "sharding/partitioning.py",
-            "training/data_parallel.py"} <= scanned
+            "training/data_parallel.py", "examples/elastic_train.py",
+            "examples/elastic_serving.py", "examples/multi_department_runtime.py"} <= scanned
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not offenders, offenders
@@ -99,6 +103,7 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
     assert "campaign grid=mix_tiny cells=1" in proc.stdout
     assert "regress: pass — 7 cell(s) within thresholds" in proc.stdout
     assert "ok: replayed" in proc.stdout
+    assert "served 4 requests in" in proc.stdout
     assert "experiment completed" in proc.stdout
     assert int(proc.stdout.split("imported")[-1]) >= 15
 

@@ -211,29 +211,37 @@ def test_elastic_resize_continues_with_the_same_losses(tmp_path, cfgs):
 
 
 def test_elastic_trainer_takes_one_device(tmp_path, cfgs):
-    """What is still refused: a model split over devices (``model_size`` > 1,
-    tensor parallelism: ROADMAP.md queue 1 item 4b). Two CPU devices train
-    as two data-parallel ranks, from the one-device trainer's checkpoint, and
-    the next step's loss is the one-device trainer's."""
+    """What is still refused: fewer devices than one model group
+    (``model_size`` 2 on one device), with a ``ValueError`` naming both
+    counts. Two CPU devices train as two data-parallel ranks, and as one
+    model group of two (tensor parallelism), from the one-device trainer's
+    checkpoint, and the next step's loss is the one-device trainer's."""
     _, tcfg = cfgs
     trainer = ElasticTrainer(tcfg, TrainConfig(), global_batch=B, seq_len=S,
                              ckpt_dir=str(tmp_path / "tp"), model_size=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        trainer.start(["cpu", "cpu"])
+    with pytest.raises(ValueError, match="1 device.*model_size 2"):
+        trainer.start(["cpu"])
     one = _trainer(tcfg, tmp_path / "one")
     one.start(["cpu"])
     one.train_steps(1)
     one.checkpoint()
-    two = _trainer(tcfg, tmp_path / "one")
-    try:
-        two.start(["cpu", "cpu"])
-        assert two.step == 1 and two.mesh.shape == {"data": 2, "model": 1}
-        got = two.train_steps(1)
-    finally:
-        two.close()
+    got = {}
+    for model_size in (1, 2):
+        two = ElasticTrainer(tcfg, TrainConfig(), global_batch=B, seq_len=S,
+                             ckpt_dir=str(tmp_path / "one"), model_size=model_size,
+                             data_fn=SyntheticLM(tcfg, seed=0).data_fn)
+        try:
+            two.start(["cpu", "cpu"])
+            assert two.step == 1
+            assert two.mesh.shape == {"data": 2 // model_size, "model": model_size}
+            got[model_size] = two.train_steps(1)
+        finally:
+            two.close()
     want = one.train_steps(1)
-    assert got["devices"] == 2 and want["devices"] == 1
-    assert abs(got["loss"] - want["loss"]) <= TOL, (got, want)
+    assert want["devices"] == 1
+    for model_size, m in got.items():
+        assert m["devices"] == 2
+        assert abs(m["loss"] - want["loss"]) <= TOL, (model_size, m, want)
 
 
 def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
@@ -252,7 +260,7 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
                                       "--log", str(tmp_path / "log2.json")]) == 0
     straight = json.load(open(tmp_path / "log2.json"))
     assert straight[-1] == resumed[-1]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+    with pytest.raises(ValueError, match="1 device.*model_size 2"):
         launcher.main(argv + ["--model-size", "2"])
 
 
