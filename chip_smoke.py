@@ -152,12 +152,31 @@ Phases, each of which fails the run on any error:
    free bytes), 2 steps; the events must equal a stub run's and the four
    losses ``train_full_width``'s bits. Each training run zeroes every launch
    count, makes every plain version (forward and backward) raise, and
-   checks the exact launches of both forward and both backward kernels.
+   checks the exact launches of both forward and both backward kernels;
+9. cost (``cost``, after ``phoenix``): the cost tooling held to steps that
+   ran on this card. Four one-card cells -- recurrentgemma-2b training at
+   1 x 3072 and musicgen-large at 1 x 2048 (remat block; one more step of
+   ``train_full_width``'s trainer, untimed), qwen2-7b's served [4, 512]
+   prefill into 544 slots and one decode step at position 512 (after its
+   serve) -- are counted on the card by ``cost.analysis.CostCounter`` and
+   dry-run on ``meta`` (``launch.dryrun.cell_record``, a 1 x 1 abstract
+   mesh): FLOPs and launches by kernel equal, the launches the exact
+   counts, the predicted peak within 10% of ``max_memory_allocated``; each
+   cell's ``roofline.score`` bound and ideal floor beside the measured time
+   of the phase that timed it. Then the production cells on the abstract
+   16 x 16 and 2 x 16 x 16 meshes (qwen2-7b's three shapes, recurrentgemma-2b
+   ``long_500k``, qwen3-moe-30b-a3b ``train_4k`` with ``--moe-ep``), every
+   record ``ok``, each with its summary line and wall;
+10. examples: ``repro_torch.examples.train_100m --preset 100m --steps 300``
+   (it exits 0 only when the nll improved; step ms, tokens/s, peak memory)
+   and ``quickstart --arch deepseek-7b --steps 5`` on the card, each with
+   its exact launches and the plain versions raising.
 Earlier lines are JSON records; the last three are the card line from
 ``nvidia-smi``, ``{"kernels": [...]}`` (seven rows: flash, decode, mLSTM,
 scan, queue core, flash backward, scan backward; the forward rows'
 ``launches_by_run`` also count the training runs, the orchestrator and
-phoenix phases and musicgen-large's serve; flash and decode carry a ``musicgen``
+phoenix phases, musicgen-large's serve, the cost phase's counted steps and
+the examples; flash and decode carry a ``musicgen``
 sub-object, flash and flash backward a ``musicgen_training`` one) and ``{"ok": true,
 "device": ...}``.
 Exits non-zero, printing no result, without a CUDA device or outside the
@@ -182,10 +201,11 @@ SRC = ROOT / "src"
 
 # name fragment -> (dense bf16 tensor-core FLOP/s, HBM bytes/s, float32
 # CUDA-core FLOP/s), data sheets; the first fragment found in the card's name
-# applies.
+# applies. The H100 SXM5's row is the port's table, ``launch.mesh.HW``, which
+# the cost tooling scores against.
 PEAKS = (("H100 PCIe", (756e12, 2.0e12, 51e12)),
          ("H100 NVL", (835e12, 3.9e12, 60e12)),
-         ("H100", (989e12, 3.35e12, 67e12)),
+         ("H100", "launch.mesh.HW"),
          ("H200", (989e12, 4.8e12, 67e12)))
 
 SERVE_ARGV = ["--device", "cuda", "--no-reduced", "--requests", "8",
@@ -211,6 +231,9 @@ def card_line() -> str:
 def peaks(name: str):
     for fragment, rates in PEAKS:
         if fragment in name:
+            if rates == "launch.mesh.HW":
+                from repro_torch.launch.mesh import HW
+                return HW["peak_flops_bf16"], HW["hbm_bw"], HW["peak_flops_fp32"]
             return rates
     raise RuntimeError(f"no peak rates known for {name!r}")
 
@@ -500,6 +523,7 @@ def measure_flash(torch, gen, dev, peak, B, S, H, K, hd, window=0):
     for recurrentgemma-2b). With a window shorter than S, SDPA takes the
     same mask as a boolean ``attn_mask`` and the bound counts only the
     visible pairs."""
+    from repro_torch.cost import kernels as work
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
@@ -519,9 +543,7 @@ def measure_flash(torch, gen, dev, peak, B, S, H, K, hd, window=0):
             enable_gqa=True, **sdpa_mask)}, inputs)
     plain = time_ms(torch, lambda a, b, c: flash_attention_reference(
         a, b, c, window=window), inputs)
-    pairs = visible_pairs(S, window)               # causal (q, k) pairs in the window
-    flops = 4 * B * H * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    flops, nbytes = work.flash_forward(B, S, H, K, hd, window)
     return interleaved_figures(turns, plain, flops, nbytes, peak)
 
 
@@ -532,6 +554,7 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches, cur=None):
     qwen2-7b, 48 x 2.2 MB for recurrentgemma-2b). With ``cur`` >= L the
     cache is a ring that has wrapped: slot s holds the newest position
     p <= cur with p % L == s (every slot valid, so the work is the same)."""
+    from repro_torch.cost import kernels as work
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_reference
@@ -552,8 +575,7 @@ def measure_decode(torch, gen, dev, peak, B, H, K, L, hd, n_caches, cur=None):
             enable_gqa=True)}, inputs)
     plain = time_ms(torch, lambda q, ck, cv: decode_attention_reference(q, ck, cv, sp, cur),
                     inputs)
-    flops = 4 * B * H * hd * L
-    nbytes = 2 * (2 * B * H * hd + 2 * B * L * K * hd) + 4 * L
+    flops, nbytes = work.decode(B, H, K, L, hd)
     return {**interleaved_figures(turns, plain, flops, nbytes, peak),
             "split_plan": list(plan), "blocks": plan.blocks(B, K)}
 
@@ -639,6 +661,7 @@ def measure_mlstm(torch, gen, dev, peak):
     in L2 (34 MB of q/k/v). The two kernels of a call are short enough that
     the host's per-call work matters, so the call is timed as a CUDA graph
     (``time_interleaved``) with no library yardstick beside it."""
+    from repro_torch.cost import kernels as work
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_reference
     B, S, H, dqk, dv, c = 4, 512, 4, 512, 1024, 256
@@ -647,14 +670,7 @@ def measure_mlstm(torch, gen, dev, peak):
                              inputs)["kernel"]
     plain = time_ms(torch, lambda *a: mlstm_chunk_reference(*a, return_state=True),
                     inputs)
-    pairs = c * (c + 1) // 2                       # causal (j, l) pairs per chunk
-    per_chunk = (2 * pairs * (dqk + dv + 1)        # q k^T, W v, sum W S
-                 + 4 * c * dqk * dv                # q C and the C update
-                 + 4 * c * dqk)                    # q . n and the n update
-    flops = B * H * (S // c) * per_chunk
-    nbytes = (2 * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out (bf16)
-              + 4 * 2 * B * S * H                  # the two gates (f32)
-              + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
+    flops, nbytes = work.mlstm(B, S, H, dqk, dv, c)
     return {**measured(turns["median"], plain, None, flops, nbytes, peak[0], peak[1]),
             "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"]}
 
@@ -734,6 +750,7 @@ def measure_rglru(torch, gen, dev, peak, B=4, S=512, W=2560):
     ``rotated_ms``: the same calls, in the same turns, rotating over three
     sets (189 MB). No library yardstick: no single PyTorch call computes a
     linear recurrence."""
+    from repro_torch.cost import kernels as work
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, scan_plan
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
     inputs = [(*_rglru_inputs(torch, gen, dev, B, S, W, torch.float32)[:2],
@@ -741,8 +758,7 @@ def measure_rglru(torch, gen, dev, peak, B=4, S=512, W=2560):
     turns = time_interleaved(torch, {"kernel": lambda *_: rglru_scan(*inputs[0]),
                                      "rotated": rglru_scan}, inputs)
     plain = time_ms(torch, rglru_scan_reference, inputs[:1], iters=5)
-    flops = 2 * B * S * W                          # one FMA a step (float32)
-    nbytes = 4 * (3 * B * S * W + B * W)           # a, b, h0 in, h out
+    flops, nbytes = work.rglru_forward(B, S, W)
     plan = scan_plan(S)
     one, rotated = turns["kernel"], turns["rotated"]
     return {**measured(one["median"], plain, None, flops, nbytes, peak[2], peak[1]),
@@ -2217,12 +2233,6 @@ def check_rglru_backward(torch, gen, dev):
     return errs
 
 
-def visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs the causal mask with ``window`` lets through: the
-    work of this input."""
-    return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(S))
-
-
 def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
     """The backward kernels at a training shape (bf16), timed as the forward
     kernels are (``time_interleaved``: CUDA graphs of 20 calls, 7 turns) in
@@ -2232,6 +2242,7 @@ def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
     the difference, the backward's share. The bound counts five products
     over the visible pairs at the bf16 tensor-core rate, and q, k, v, o,
     dO, lse in and dq, dk, dv out once."""
+    from repro_torch.cost import kernels as work
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     q, k, v, do = _flash_bwd_inputs(torch, gen, dev, B, S, H, K, hd, torch.bfloat16)
@@ -2253,9 +2264,7 @@ def measure_flash_backward(torch, gen, dev, peak, B, S, H, K, hd, window):
         "library_fwd": lambda: sdpa().detach()}, [()], iters=5)
     plain = time_ms(torch, lambda: ops.flash_attention_backward_reference(
         q, k, v, o, do, lse, window=window), [()], iters=2, warmup=1)
-    flops = 5 * 2 * B * H * hd * visible_pairs(S, window)
-    nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
-        + 2 * (B * S * H * hd + 2 * B * S * K * hd)
+    flops, nbytes = work.flash_backward(B, S, H, K, hd, window)
     library = turns["library_fwd_bwd"]["median"] - turns["library_fwd"]["median"]
     return {**measured(turns["kernel"]["median"], plain, library, flops, nbytes,
                        peak[0], peak[1]),
@@ -2277,6 +2286,7 @@ def measure_rglru_backward(torch, gen, dev, peak, B, S, W):
     and clusters, shared bytes a block and the clusters the card holds at
     once (``ops.backward_residency``: the CUDA runtime's count), the blocks an SM
     that makes, and the staging path."""
+    from repro_torch.cost import kernels as work
     from repro_torch.kernels.rglru_scan import ops
     a, b, h0 = _rglru_inputs(torch, gen, dev, B, S, W, torch.float32)
     h = ops.rglru_scan(a, b, h0)
@@ -2284,8 +2294,7 @@ def measure_rglru_backward(torch, gen, dev, peak, B, S, W):
     inputs = [(a, h, h0, dh)]
     turns = time_interleaved(torch, {"kernel": ops.rglru_scan_backward}, inputs)
     plain = time_ms(torch, ops.rglru_scan_backward_reference, inputs, iters=1, warmup=1)
-    flops = 3 * B * S * W
-    nbytes = 4 * (5 * B * S * W + 2 * B * W)
+    flops, nbytes = work.rglru_backward(B, S, W)
     plan = ops.scan_plan(S)
     clusters = -(-W // ops.BWD_TILE_W) * B
     smem, resident = ops.backward_residency(plan)
@@ -2406,7 +2415,7 @@ FULL_WIDTH_TRAINING = (  # (arch, batch, sequence, least parameters)
 
 
 def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
-                     min_params: float, steps: int = 4) -> dict:
+                     min_params: float, cost_cells: dict, steps: int = 4) -> dict:
     """``arch`` at its published widths (bf16 weights from seed 0, float32
     AdamW state) through the port's ``ElasticTrainer.train_steps`` on one
     card (world size 1: no process group, no collective), batch B x S of
@@ -2456,6 +2465,8 @@ def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
               "nvidia_smi": card_line()}
     emit(record)
     profile_training(torch, trainer)
+    cost_cells[cfg.name] = counted_step(torch, lambda: trainer.train_steps(1), (trainer.state,))
+    cost_cells[cfg.name]["measured_ms"] = step_ms
     finite = all(math.isfinite(r[k]) for r in rows for k in ("loss", "nll", "grad_norm"))
     if not (finite and launches == expected and n_params > min_params
             and peak_bytes < 80e9 and trainer.mesh.size == 1):
@@ -2644,6 +2655,192 @@ def phoenix_phase(torch, out_dir: Path, want_losses: list) -> dict:
     return launches
 
 
+def counted_step(torch, fn, live) -> dict:
+    """One more step (``fn``), untimed, under the cost counter
+    (``cost.analysis.CostCounter``, ``live`` held from the start) with the
+    exact launches counted and the plain versions raising; the card's peak
+    memory over it (``max_memory_allocated`` after a reset)."""
+    from repro_torch.cost.analysis import CostCounter
+    launches = {}
+    with counted_on_card(launches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with CostCounter(live=live) as counter:
+            fn()
+            torch.cuda.synchronize()
+    return {"card": counter.totals(), "card_peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def serve_cost_cells(torch, model, report, cost_cells: dict) -> dict:
+    """qwen2-7b's served shapes counted on the card: a [4, 512] prefill into
+    caches of 544 slots and one decode step at position 512 (the serve
+    phase's last round times them). Returns the launches."""
+    from repro_torch.serving.engine import make_decode_fn, make_prefill_fn
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), device=dev, generator=gen)
+    t = report["timings"][-1]
+    out = {}
+    with torch.no_grad():
+        out["prefill"] = counted_step(
+            torch, lambda: out.setdefault("caches", make_prefill_fn(cfg, max_len=544)(
+                model, tokens)[1]), (model, tokens))
+        caches, nxt = out.pop("caches"), tokens[:, -1:].contiguous()
+        out["decode"] = counted_step(
+            torch, lambda: make_decode_fn(cfg)(model, caches, nxt, 512), (model, caches, nxt))
+    out["prefill"]["measured_ms"] = t["prefill_s"] * 1e3
+    out["decode"]["measured_ms"] = t["decode_s"] * 1e3 / (t["max_new"] - 1)
+    cost_cells[f"{cfg.name} prefill"], cost_cells[f"{cfg.name} decode"] = out["prefill"], \
+        out["decode"]
+    launches = {}
+    for cell in out.values():
+        for k, n in cell["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+# the one-card cells: the name the card's counted step is kept under, the
+# arch, the dry run's shape and its plan's overrides
+COST_CELLS = (
+    ("recurrentgemma-2b", "recurrentgemma-2b", ("train_1x3072", 3072, 1, "train"),
+     {"remat": "block"}),
+    ("musicgen-large", "musicgen-large", ("train_1x2048", 2048, 1, "train"),
+     {"remat": "block"}),
+    ("qwen2-7b prefill", "qwen2-7b", ("prefill_4x512", 512, 4, "prefill"), {"max_len": 544}),
+    ("qwen2-7b decode", "qwen2-7b", ("decode_4x544", 544, 4, "decode"), {}),
+)
+# the production cells: the dry run's arguments
+PRODUCTION_CELLS = (
+    ["--arch", "qwen2-7b", "--mesh", "single"],
+    ["--arch", "recurrentgemma-2b", "--shape", "long_500k", "--mesh", "single"],
+    ["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--mesh", "multi", "--moe-ep"],
+)
+
+
+def cost_phase(torch, cost_cells: dict, out_dir: Path) -> None:
+    """The cost tooling held to steps that ran on this card: each one-card
+    cell dry-run on ``meta`` (``launch.dryrun.cell_record`` on a 1 x 1
+    abstract mesh) against the same cell's counted step on the card. The
+    FLOPs and the launches by kernel must be equal, the launches must be the
+    exact counts, and the predicted peak within 10% of the card's; each
+    cell's roofline bound is printed beside the measured time of the phase
+    that timed it (the share of the bound it reached). Then the production
+    cells on the 16 x 16 and 2 x 16 x 16 abstract meshes, every record
+    ``ok``."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import cell_plan
+    mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+    for name, arch, shape_args, overrides in COST_CELLS:
+        cfg, shape = get_config(arch), ShapeConfig(*shape_args)
+        plan = cell_plan(cfg, shape, mesh)
+        if "remat" in overrides:
+            plan = dataclasses.replace(plan, tcfg=dataclasses.replace(
+                plan.tcfg, remat=overrides["remat"]))
+        if "max_len" in overrides:
+            plan = dataclasses.replace(plan, max_len=overrides["max_len"])
+        rec = dryrun.cell_record(cfg, shape, mesh, plan, "one card")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run of {name}: {rec['error']}\n{rec['traceback']}")
+        card = cost_cells[name]
+        meta_k = {k: v["launches"] for k, v in rec["cost"]["kernel_detail"].items()}
+        card_k = {k: v["launches"] for k, v in card["card"]["kernel_detail"].items()}
+        peak, measured_peak = rec["memory"]["peak_bytes_est"], card["card_peak_bytes"]
+        bound_ms = rec["roofline"]["bound_s"] * 1e3
+        ideal_ms = max(rec["roofline"]["ideal_compute_s"], rec["roofline"]["ideal_memory_s"]) * 1e3
+        emit({"phase": "cost", "cell": name, "shape": list(shape_args), "plan": rec["plan"],
+              "flops_meta": rec["cost"]["flops"], "flops_card": card["card"]["flops"],
+              "model_flops": rec["roofline"]["model_flops"],
+              "hbm_bytes_meta": rec["cost"]["hbm_bytes"],
+              "hbm_bytes_card": card["card"]["hbm_bytes"],
+              "launches_meta": meta_k, "launches_card": card_k,
+              "launches_exact": card["launches"],
+              "peak_bytes_predicted": peak, "max_memory_allocated_bytes": measured_peak,
+              "peak_ratio": peak / measured_peak, "roofline": rec["roofline"],
+              "bound_ms": bound_ms, "measured_ms": card["measured_ms"],
+              "roofline_share": bound_ms / card["measured_ms"], "ideal_ms": ideal_ms,
+              "ideal_share": ideal_ms / card["measured_ms"], "trace_s": rec["trace_s"],
+              "nvidia_smi": card_line()})
+        if rec["cost"]["flops"] != card["card"]["flops"]:
+            raise AssertionError(f"{name}: meta FLOPs {rec['cost']['flops']} != card "
+                                 f"{card['card']['flops']}")
+        if not meta_k == card_k == card["launches"]:
+            raise AssertionError(f"{name}: launches meta {meta_k}, card {card_k}, "
+                                 f"exact {card['launches']}")
+        if abs(peak / measured_peak - 1) > 0.10:
+            raise AssertionError(f"{name}: predicted peak {peak} vs {measured_peak}")
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    for i, argv in enumerate(PRODUCTION_CELLS):
+        t0 = time.perf_counter()
+        rc, out = quiet(dryrun.main, argv + ["--out", str(out_dir / str(i))])
+        wall = time.perf_counter() - t0
+        records = [json.loads(p.read_text()) for p in sorted((out_dir / str(i)).glob("*/*.json"))]
+        for rec in records:
+            emit({"phase": "cost_production", "arch": rec["arch"], "shape": rec["shape"],
+                  "mesh": rec["mesh"], "mesh_shape": rec["mesh_shape"], "status": rec["status"],
+                  "summary": dryrun.summary(rec), "trace_s": rec.get("trace_s"),
+                  "peak_bytes_est": rec.get("memory", {}).get("peak_bytes_est"),
+                  "fits_hbm": rec.get("fits_hbm"),
+                  "collective_detail": rec.get("collective_detail"),
+                  "roofline": rec.get("roofline"), "command_wall_s": wall})
+        if rc != 0 or not records or any(r["status"] != "ok" for r in records):
+            raise AssertionError(f"dry run {argv} exited {rc}:\n{out}")
+
+
+def examples_phase(torch, out_dir: Path) -> dict:
+    """``python -m repro_torch.examples.train_100m --preset 100m --steps 300``
+    and ``quickstart --arch deepseek-7b --steps 5`` on the card, counted (the
+    exact launches, plain versions raising); train_100m must exit 0 (its nll
+    improved). Step ms, tokens/s and peak memory of train_100m."""
+    import shutil
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.examples import quickstart, train_100m
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    log = out_dir / "train_100m.json"
+    runs = {}
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_on_card(launches):
+        rc, out = quiet(train_100m.main, ["--preset", "100m", "--steps", "300", "--log", log])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = json.loads(log.read_text())
+    expected = train_launches(train_100m.config("100m"), 300, True)
+    step_ms = rows[-1]["elapsed_s"] * 1e3 / rows[-1]["step"] if rows[-1]["step"] else None
+    emit({"phase": "examples", "example": "train_100m --preset 100m --steps 300", "rc": rc,
+          "first_line": out.splitlines()[0], "last_line": out.strip().splitlines()[-1],
+          "nll_first": rows[0]["nll"], "nll_last": rows[-1]["nll"],
+          "step_ms": step_ms, "tokens_per_s": 4 * 256 / step_ms * 1e3 if step_ms else None,
+          "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "expected_launches": expected})
+    if rc != 0 or launches != expected:
+        raise AssertionError(f"train_100m exited {rc}, launches {launches} != {expected}:\n{out}")
+    runs["examples: train_100m --preset 100m (300 steps)"] = launches
+    launches = {}
+    with counted_on_card(launches):
+        rc, out = quiet(quickstart.main, ["--arch", "deepseek-7b", "--steps", "5"])
+        torch.cuda.synchronize()
+    expected = train_launches(reduced_config(ARCHS["deepseek-7b"]), 5, True)
+    lines = out.strip().splitlines()
+    emit({"phase": "examples", "example": "quickstart --arch deepseek-7b --steps 5", "rc": rc,
+          "lines": lines, "launches": launches, "expected_launches": expected})
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines[1:]]
+    if rc != 0 or launches != expected or len(losses) != 5 or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"quickstart exited {rc}, launches {launches}:\n{out}")
+    runs["examples: quickstart deepseek-7b reduced (5 steps)"] = launches
+    return runs
+
+
 def profile_training(torch, trainer) -> None:
     """torch.profiler over one more full-width step (after the counted
     ones): device busy and idle share, kernels by name, and device time by
@@ -2753,6 +2950,7 @@ def main() -> int:
         check_small_model(torch, dev, cfg, S)
 
     launches = {}                               # kernel -> {run: launches}
+    cost_cells = {}                             # one-card cost cell -> the card's counts
     for arch in ("qwen2-7b", "recurrentgemma-2b", "xlstm-1.3b", "qwen3-moe-30b-a3b",
                  "gemma3-12b"):
         for kernel, n in serve_reduced_defaults(torch, arch).items():
@@ -2765,6 +2963,10 @@ def main() -> int:
             if n:
                 launches.setdefault(kernel, {})[arch] = n
         model = report["pool"].replicas[0].model
+        if arch == "qwen2-7b":
+            for kernel, n in serve_cost_cells(torch, model, report, cost_cells).items():
+                launches.setdefault(kernel, {})[
+                    "cost: qwen2-7b [4, 512] prefill + 1 decode step (counted)"] = n
         profiled = profile_serving(torch, model)
         if arch == "xlstm-1.3b":
             time_xlstm_blocks(torch, report["pool"])
@@ -2794,10 +2996,13 @@ def main() -> int:
     for arch, B, S, min_params in FULL_WIDTH_TRAINING:
         train_runs[f"train_full_width {arch} (4 steps)"], full_width_losses[arch] = \
             train_full_width(torch, dev, ROOT / "build" / "chip_smoke_train_full", arch, B, S,
-                             min_params)
+                             min_params, cost_cells)
+        train_runs[f"cost: {arch} (1 counted step)"] = cost_cells[arch]["launches"]
     train_runs["phoenix: recurrentgemma-2b serve + full-width trainer (4 steps, 1 resize)"] = \
         phoenix_phase(torch, ROOT / "build" / "chip_smoke_phoenix",
                       full_width_losses["recurrentgemma-2b"])
+    cost_phase(torch, cost_cells, ROOT / "build" / "chip_smoke_dryrun")
+    train_runs.update(examples_phase(torch, ROOT / "build" / "chip_smoke_examples"))
     for run, counts in train_runs.items():
         for kernel, n in counts.items():
             if n:

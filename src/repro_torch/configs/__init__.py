@@ -8,7 +8,8 @@ embedding inputs, four codebook heads): the JAX package's ten archs.
 """
 from __future__ import annotations
 
-from .base import ModelConfig, MoEConfig
+from .base import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, SHAPES_BY_NAME,  # noqa: F401
+                   TRAIN_4K, ModelConfig, MoEConfig, ShapeConfig, shapes_for)
 from .chameleon_34b import CONFIG as chameleon_34b
 from .dbrx_132b import CONFIG as dbrx_132b
 from .deepseek_7b import CONFIG as deepseek_7b

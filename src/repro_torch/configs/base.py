@@ -12,6 +12,8 @@ Every architecture is a ``ModelConfig``: a decoder-only stack whose per-layer
 
 The fields are those of the JAX package, so a config converts field by field;
 the port's model raises ``ValueError`` on a block kind it does not know.
+``param_count`` (the analytic count behind MODEL_FLOPS = 6 N D) and the dry
+run's cell shapes (``ShapeConfig``, ``shapes_for``) are the JAX module's.
 """
 from __future__ import annotations
 
@@ -83,6 +85,82 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- parameter count (analytic; used for MODEL_FLOPS = 6 N D) ----
+    def param_count(self, active_only: bool = False) -> int:
+        d, ff = self.d_model, self.d_ff
+        n = 0
+        emb = self.vocab_size * d
+        n += emb  # input embedding
+        if not self.tie_embeddings:
+            if self.num_codebooks > 0:
+                n += self.num_codebooks * self.vocab_size * d
+            else:
+                n += emb
+        for kind in self.layer_kinds():
+            if kind in ("attn", "local"):
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qkv_bias:
+                    n += self.q_dim + 2 * self.kv_dim
+                if self.moe is not None:
+                    e = self.moe.top_k if active_only else self.moe.num_experts
+                    n += d * self.moe.num_experts  # router
+                    n += e * 3 * d * self.moe.d_ff_expert
+                else:
+                    n += 3 * d * ff
+                n += 2 * d  # norms
+            elif kind == "rglru":
+                w = self.lru_width
+                n += 2 * d * w + w * d          # branch in/out projections
+                n += self.conv_width * w         # temporal conv
+                n += 2 * w * w                   # gate projections (block-diag approx)
+                n += 2 * w                       # Lambda + input-gate params
+                n += 3 * d * ff + 2 * d          # MLP + norms
+            elif kind == "mlstm":
+                inner = int(self.d_model * self.mlstm_proj_factor)
+                n += 2 * d * inner               # up (x and gate)
+                n += 3 * inner * inner // 1      # q,k,v projections (inner->inner)
+                n += 2 * inner                   # i,f gate projections (per-dim)
+                n += inner * d                   # down
+                n += 2 * d
+            elif kind == "slstm":
+                inner = int(self.d_model * self.slstm_proj_factor)
+                n += 4 * d * d                   # z,i,f,o input projections
+                n += 4 * d * self.head_dim       # block-diag recurrent weights
+                n += 4 * d                       # biases
+                n += d * inner + inner * d       # post-FFN
+                n += 2 * d
+        return n
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (workload shape) cell: what the dry run traces."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """Shapes applicable to this architecture (long_500k needs sub-quadratic)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.supports_long_context:
+        out.append(LONG_500K)
+    return tuple(out)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,82 @@
+"""The work of each of the port's kernels: (operations, bytes) of one call.
+
+One set of formulas for two readers: ``chip_smoke.py`` divides them by the
+card's rates for each kernel row's bound, and the kernels' wrappers report
+them to the cost counter (``cost.analysis.report_kernel``) on every call,
+on the card and on ``meta``. Bytes count each input read once and each
+output written once; operations count the products at the rate of their
+type (a multiply-add is two). Where the work depends on the mask, only the
+(query, key) pairs it lets through count. The decode kernel reads every
+slot of the cache, so its work counts the whole cache length.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+Work = Tuple[int, int]
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal mask with ``window`` (0: none) lets
+    through: sum over q < S of min(q + 1, window)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_forward(B: int, S: int, H: int, K: int, hd: int, window: int = 0,
+                  itemsize: int = 2, lse: bool = False) -> Work:
+    """QK^T and PV over the visible pairs; q, k, v in, o out (and the
+    float32 log-sum-exp [B, H, S] that training writes beside it)."""
+    flops = 4 * B * H * hd * visible_pairs(S, window)
+    nbytes = itemsize * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    return flops, nbytes + (4 * B * H * S if lse else 0)
+
+
+def flash_backward(B: int, S: int, H: int, K: int, hd: int, window: int = 0,
+                   itemsize: int = 2) -> Work:
+    """Five products over the visible pairs (QK^T again, dP, dV, dQ, dK); q,
+    k, v, o, dO and the log-sum-exp in, dq, dk, dv out."""
+    flops = 5 * 2 * B * H * hd * visible_pairs(S, window)
+    nbytes = itemsize * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
+        + itemsize * (B * S * H * hd + 2 * B * S * K * hd)
+    return flops, nbytes
+
+
+def decode(B: int, H: int, K: int, L: int, hd: int, itemsize: int = 2) -> Work:
+    """One query a head against all L slots; q and the cache in, o out, and
+    the slots' positions (int32)."""
+    flops = 4 * B * H * hd * L
+    nbytes = itemsize * (2 * B * H * hd + 2 * B * L * K * hd) + 4 * L
+    return flops, nbytes
+
+
+def mlstm(B: int, S: int, H: int, dqk: int, dv: int, chunk: int, itemsize: int = 2) -> Work:
+    """The chunkwise mLSTM at chunk ``chunk`` (a divisor of S): within each
+    chunk the causal pairs' q k^T, W v and the row sums, across chunks q C
+    and the C and n updates; q, k, v in and h out, the float32 gates in and
+    the final float32 state (C, n, m) out."""
+    c = chunk
+    pairs = c * (c + 1) // 2                       # causal (j, l) pairs per chunk
+    per_chunk = (2 * pairs * (dqk + dv + 1)        # q k^T, W v, sum W S
+                 + 4 * c * dqk * dv                # q C and the C update
+                 + 4 * c * dqk)                    # q . n and the n update
+    flops = B * H * (S // c) * per_chunk
+    nbytes = (itemsize * B * S * H * (2 * dqk + 2 * dv)   # q, k, v in, h out
+              + 4 * 2 * B * S * H                  # the two gates (f32)
+              + 4 * B * H * (dqk * dv + dqk + 1))  # C, n, m out (f32)
+    return flops, nbytes
+
+
+def rglru_forward(B: int, S: int, W: int, itemsize: int = 4, out_itemsize: int = 4) -> Work:
+    """One multiply-add a step and channel (float32 carry); a and b in, h0
+    in (float32), h out."""
+    flops = 2 * B * S * W
+    nbytes = itemsize * 2 * B * S * W + out_itemsize * B * S * W + 4 * B * W
+    return flops, nbytes
+
+
+def rglru_backward(B: int, S: int, W: int) -> Work:
+    """Two multiply-add-sized operations and a product a step (float32); a,
+    h, dh and h0 in, da, db and dh0 out."""
+    return 3 * B * S * W, 4 * (5 * B * S * W + 2 * B * W)

@@ -8,7 +8,10 @@ tensor goes to the plain version (``ref.py``); a CUDA tensor launches
 kernel takes head_dim 16, 64, 128 or 256 and a group ``H // K`` of at most 16
 (in head blocks of at most 8 heads), and splits the L slots of each (batch,
 kv head) over the blocks of a thread-block cluster as ``split_plan`` says.
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts kernel launches. A ``meta`` tensor
+(the dry run's) gets an output of the kernel's shape and launches nothing;
+on ``meta`` and on the card each call reports its work (``cost.kernels``:
+every slot of the cache is read) to an active cost counter.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.cost import analysis, kernels as work
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 
@@ -104,14 +108,10 @@ def _strides(q, k, v, out) -> ctypes.Array:
     return _build.int64_array(q[:2] + k[:3] + v[:3] + out[:2])
 
 
-def _launch(q, cache_k, cache_v, slot_pos, cur_pos: int, window: int,
-            plan: Optional[SplitPlan] = None,
-            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
-    """Launch the kernel for CUDA tensors, with ``split_plan``'s split unless
-    another plan is given, from the built library unless another (bound by
-    ``_bind``) is given."""
+def _check_kernel_inputs(q, cache_k, slot_pos) -> None:
+    """What the kernel takes, whatever the device."""
     B, H, hd = q.shape
-    L, K = cache_k.shape[1], cache_k.shape[2]
+    K = cache_k.shape[2]
     if q.dtype not in _DTYPES:
         raise ValueError(f"decode_attention kernel takes float32/bfloat16, got {q.dtype}")
     if hd not in HEAD_DIMS:
@@ -120,6 +120,24 @@ def _launch(q, cache_k, cache_v, slot_pos, cur_pos: int, window: int,
         raise ValueError(f"group size {H // K} exceeds {MAX_GROUP}")
     if slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous():
         raise ValueError("slot_pos must be a contiguous int32 tensor")
+
+
+def _report(q, cache_k) -> None:
+    if analysis.counting():
+        B, H, hd = q.shape
+        analysis.report_kernel("decode_attention", *work.decode(
+            B, H, cache_k.shape[2], cache_k.shape[1], hd, q.element_size()))
+
+
+def _launch(q, cache_k, cache_v, slot_pos, cur_pos: int, window: int,
+            plan: Optional[SplitPlan] = None,
+            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Launch the kernel for CUDA tensors, with ``split_plan``'s split unless
+    another plan is given, from the built library unless another (bound by
+    ``_bind``) is given."""
+    B, H, hd = q.shape
+    L, K = cache_k.shape[1], cache_k.shape[2]
+    _check_kernel_inputs(q, cache_k, slot_pos)
     if any(t.stride(-1) != 1 for t in (q, cache_k, cache_v)):
         raise ValueError("decode_attention kernel needs a contiguous head dim")
     size = q.element_size()
@@ -139,6 +157,7 @@ def _launch(q, cache_k, cache_v, slot_pos, cur_pos: int, window: int,
             1.0 / math.sqrt(hd), *plan, stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
+    _report(q, cache_k)
     return out
 
 
@@ -151,6 +170,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_reference(q, cache_k, cache_v, slot_pos,
                                           cur_pos, window=window)
+    if q.device.type == "meta":
+        _check_kernel_inputs(q, cache_k, slot_pos)
+        _report(q, cache_k)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, cache_k, cache_v, slot_pos, cur_pos, window)

@@ -38,6 +38,12 @@ chooses:
 
 No atomics in either: two calls give the same bits.
 
+A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch: it
+gets outputs of the kernels' shapes and the scratch the CUDA path
+allocates, and launches nothing. On ``meta`` and on the card each call
+reports its work (``cost.kernels``) to an active cost counter
+(``cost.analysis``).
+
 ``flash_attention.launches`` counts forward kernel launches and
 ``flash_attention_backward.launches`` backward calls that launched their
 kernels (one a call, however many kernels it launches).
@@ -51,6 +57,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.cost import analysis, kernels as work
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import BOX_COLS, TensorMapPlan, tensor_map_plan  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import (
@@ -177,6 +184,11 @@ def _launch(q, k, v, *, causal: bool, window: int, lse: bool = False):
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse_out = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
                if lse else None)
+    if analysis.counting():
+        analysis.report_kernel("flash_attention", *work.flash_forward(
+            B, S, H, K, hd, window, q.element_size(), lse))
+    if q.device.type == "meta":
+        return (out, lse_out) if lse else out
     scale = 1.0 / math.sqrt(hd)
     if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
         entry, lead = "flash_attention_fwd_bf16", ()
@@ -223,7 +235,7 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse,
                                                   causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     return _launch_backward(q, k, v, o, do, lse, causal=causal, window=window)
 
@@ -243,18 +255,25 @@ def _launch_backward(q, k, v, o, do, lse, *, causal: bool, window: int,
     shape = (B, S, H, K, hd)
     flags = (int(causal), int(window), 1.0 / math.sqrt(hd))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if analysis.counting():
+        analysis.report_kernel("flash_attention_backward", *work.flash_backward(
+            B, S, H, K, hd, window, q.element_size()))
     if backward_instance(q.dtype, hd) == "tc":
+        rows = torch.empty((2, B * H, -(-S // BWD_BLOCK) * BWD_BLOCK), **f32)
+        part = torch.empty((2, B, S, H, hd), **f32)
+        if q.device.type == "meta":
+            return dq, dk, dv
         plans = backward_kernel_args(q, k, v, do)
         if o.data_ptr() % 16:
             raise ValueError(f"the backward reads o in 16-byte chunks; its base "
                              f"{o.data_ptr():#x} is not 16-byte aligned")
-        rows = torch.empty((2, B * H, -(-S // BWD_BLOCK) * BWD_BLOCK), **f32)
-        part = torch.empty((2, B, S, H, hd), **f32)
         tensors = (q, k, v, o, do, lse, dq, dk, dv, rows, part)
         entry, args = "flash_attention_bwd_bf16", (
             *(t.data_ptr() for t in tensors), *shape, plans, *flags, float(split_p))
     else:
         delta = torch.empty((B, H, S), **f32)
+        if q.device.type == "meta":
+            return dq, dk, dv
         tensors = (q, k, v, o, do, lse, dq, dk, dv, delta)
         entry, args = "flash_attention_bwd_cc", (
             _DTYPES[q.dtype], *(t.data_ptr() for t in tensors), *shape, *flags)
@@ -290,7 +309,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, S, H, hd]; k/v: [B, S, K, hd]. Returns [B, S, H, hd] in q's dtype."""
     _check_inputs(q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, window)

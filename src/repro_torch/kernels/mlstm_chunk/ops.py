@@ -19,6 +19,14 @@ model's prefill caches. ``mlstm_chunk.launches`` counts calls that launched
 the kernels (one for the bf16 pair). The kernels have no backward yet: a
 CUDA call that autograd would record raises ``NotImplementedError``; on the
 CPU the plain version carries autograd.
+
+A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch:
+outputs of the kernels' shapes and the scratch the bf16 path allocates,
+and no launch. Where autograd would record a meta call there is no kernel
+to stand for, so the plain version runs on ``meta`` (as on the CPU) and
+says so to an active cost counter (``cost.analysis.report_plain``). On
+``meta`` and on the card each kernel call reports its work
+(``cost.kernels``) to the counter.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.cost import analysis, kernels as work
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import PLAN_VALUES, TensorMapPlan, tensor_map_plan
 from repro_torch.kernels.mlstm_chunk.ref import chunk_size, mlstm_chunk_reference
@@ -98,6 +107,11 @@ def bf16_kernel_args(q, k, v, i_log, f_log, h, c_scr) -> ctypes.Array:
                    i_log.stride() + f_log.stride() + h.stride()[:3])
 
 
+def _pointers(q, k, v, i_log, f_log, h, C, n, m):
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), i_log.data_ptr(), f_log.data_ptr()),
+            (h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr()), _lib())
+
+
 def _launch(q, k, v, i_log, f_log, chunk: int):
     """Launch the kernels for CUDA tensors; returns h and (C, n, m)."""
     B, S, H, dqk = q.shape
@@ -118,9 +132,10 @@ def _launch(q, k, v, i_log, f_log, chunk: int):
     C = torch.empty((B, H, dqk, dv), dtype=torch.float32, device=dev)
     n = torch.empty((B, H, dqk), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
-    outs = (h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr())
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), i_log.data_ptr(), f_log.data_ptr())
-    lib = _lib()
+    if analysis.counting():
+        analysis.report_kernel("mlstm_chunk", *work.mlstm(B, S, H, dqk, dv, c,
+                                                          q.element_size()))
+    meta = dev.type == "meta"
     if q.dtype == torch.bfloat16:
         if min(dqk, dv) < MIN_TC_DIM:
             raise ValueError(f"the bf16 mlstm_chunk kernels take dqk and dv of at least "
@@ -130,12 +145,18 @@ def _launch(q, k, v, i_log, f_log, chunk: int):
                  if interior else None)
         n_scr = (torch.empty((interior, dqk), dtype=torch.float32, device=dev)
                  if interior else None)
+        if meta:
+            return h, (C, n, m)
+        ins, outs, lib = _pointers(q, k, v, i_log, f_log, h, C, n, m)
         args = bf16_kernel_args(q, k, v, i_log, f_log, h, c_scr)
         call = functools.partial(
             lib.mlstm_chunk_fwd_bf16, *ins, *outs,
             None if c_scr is None else c_scr.data_ptr(),
             None if n_scr is None else n_scr.data_ptr(), B, S, H, dqk, dv, c, args)
     elif q.dtype == torch.float32:
+        if meta:
+            return h, (C, n, m)
+        ins, outs, lib = _pointers(q, k, v, i_log, f_log, h, C, n, m)
         strides = [_build.int64_array(t.stride()[:3])
                    for t in (q, k, v, i_log, f_log, h)]
         call = functools.partial(lib.mlstm_chunk_fwd_f32, *ins, *outs,
@@ -161,9 +182,15 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk,
                                      return_state=return_state)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_log, f_log)):
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_log, f_log))
+    if records and q.device.type == "meta":
+        analysis.report_plain("mlstm_chunk")
+        return mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk,
+                                     return_state=return_state)
+    if records:
         raise NotImplementedError(
             "mlstm_chunk has no backward kernel yet, so xLSTM does not train on the "
             "card (ROADMAP.md, 2.H); the plain version trains on the CPU")

@@ -16,6 +16,11 @@ from the end, float32, on the forward's plan; tiles staged by TMA where
 ``tma_staging`` allows), on the CPU the explicit reverse recurrence
 of ``ref.py``. ``rglru_scan.launches`` counts forward kernel launches and
 ``rglru_scan_backward.launches`` backward ones.
+
+A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch:
+outputs of the kernels' shapes and the float32 copies the CUDA path makes,
+and no launch. On ``meta`` and on the card each call reports its work
+(``cost.kernels``) to an active cost counter.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.cost import analysis, kernels as work
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_backward_reference,
                                                rglru_scan_reference)
@@ -110,7 +116,7 @@ def _check_inputs(a, b, h0):
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """a, b: [B, S, W]; h0: [B, W]. Returns h: [B, S, W] in b's dtype."""
     _check_inputs(a, b, h0)
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {a.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
         return RGLRUScanFunction.apply(a, b, h0)
@@ -132,6 +138,11 @@ def _forward(a, b, h0):
         raise ValueError(f"B = {B} exceeds the kernel's grid limit 65535")
     h0 = h0.float().contiguous()            # the carry is float32
     out = torch.empty((B, S, W), dtype=b.dtype, device=b.device)
+    if analysis.counting():
+        analysis.report_kernel("rglru_scan", *work.rglru_forward(
+            B, S, W, a.element_size(), out.element_size()))
+    if a.device.type == "meta":
+        return out
     lib = _lib()
     strides = [_build.int64_array(t.stride()[:2]) for t in (a, b, out)]
     with torch.cuda.device(a.device):
@@ -155,7 +166,7 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
         raise ValueError(f"dh must be {tuple(h.shape)}, got {tuple(dh.shape)}")
     if a.device.type == "cpu":
         return rglru_scan_backward_reference(a, h, h0, dh)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {a.device}")
     return _launch_backward(a, h, h0, dh)
 
@@ -170,6 +181,10 @@ def _launch_backward(a, h, h0, dh, plan: Optional[ScanPlan] = None,
         raise ValueError(f"B = {B} exceeds the kernel's grid limit 65535")
     a, h, h0, dh = (t.float().contiguous() for t in (a, h, h0, dh))
     plan = plan or scan_plan(S)
+    if analysis.counting():
+        analysis.report_kernel("rglru_scan_backward", *work.rglru_backward(B, S, W))
+    if a.device.type == "meta":
+        return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
     if tma is None:
         tma = tma_staging(a, h, dh)
     elif tma and not tma_staging(a, h, dh):

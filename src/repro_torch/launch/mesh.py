@@ -11,8 +11,15 @@ It gives the rank its coordinates (``coords``) and, for each axis, the
 process group of the ranks that differ from it along that axis alone
 (``group(axis)``, a ``dist.new_group``): the model group holds the ranks of
 the rank's data index, the data group those of its model index.
-``HW``, the JAX module's table of TPU figures, waits for the cost tooling
-(ROADMAP.md, queue 1 item 7), which gives the port an H100 entry.
+
+A mesh of N ``meta`` devices is abstract: no world, no card. It stands for
+rank 0 of an N-rank world, and its groups are
+``collectives.AbstractGroup``s of the axes' extents, over which the
+collectives send nothing (``launch.dryrun`` traces a rank's step on it).
+
+``HW`` is the card the cost tooling scores against (``cost.roofline``) and
+``chip_smoke.py``'s kernel bounds divide by: an H100 SXM5 80GB at its
+700 W limit, by NVIDIA's data sheet.
 """
 from __future__ import annotations
 
@@ -24,6 +31,18 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+
+
+# NVIDIA H100 SXM5 80GB at 700 W: data-sheet figures (dense, no sparsity),
+# not measurements. ``ici_bw`` keeps the JAX table's key for the link rate:
+# here NVLink 4, each direction.
+HW = {
+    "peak_flops_bf16": 989e12,   # FLOP/s, bf16 tensor cores
+    "peak_flops_fp32": 67e12,    # FLOP/s, float32 CUDA cores
+    "hbm_bw": 3.35e12,           # B/s
+    "ici_bw": 450e9,             # B/s, NVLink, each direction
+    "hbm_bytes": 80e9,           # capacity
+}
 
 
 @dataclass
@@ -48,10 +67,35 @@ class Mesh:
         index = np.unravel_index(rank, self.devices.shape)
         return {a: int(i) for a, i in zip(self.axis_names, index)}
 
-    def group(self, axis: str):
+    @property
+    def abstract(self) -> bool:
+        """A mesh of meta devices (``make_mesh``): no world behind it."""
+        return self.devices.flat[0].type == "meta"
+
+    def group(self, axis):
         """The process group of ``axis`` in this rank's world, or ``None``
-        outside one (world size 1: no collective is issued)."""
-        return self.groups.get(axis)
+        outside one (world size 1: no collective is issued). ``axis`` may
+        be a tuple of names (a spec's combined axes): on an abstract mesh
+        the group of their product; in a world, the group of the one axis
+        among them longer than 1, or the whole world where they cover every
+        such axis."""
+        names = axis if isinstance(axis, tuple) else (axis,)
+        if len(names) == 1:
+            return self.groups.get(names[0])
+        if self.abstract:
+            from repro_torch.sharding.collectives import AbstractGroup
+            from repro_torch.sharding.partitioning import _block
+            return AbstractGroup(*_block(names, self.coords(), self.shape))
+        long = [a for a in self.axis_names if self.shape[a] > 1]
+        if not self.groups or not long:
+            return None
+        inside = [a for a in names if self.shape[a] > 1]
+        if set(long) <= set(names):
+            import torch.distributed as dist
+            return dist.group.WORLD
+        if len(inside) == 1:
+            return self.groups.get(inside[0])
+        raise NotImplementedError(f"no process group over {names} of a {self.shape} mesh")
 
 
 def visible_cards() -> list:
@@ -65,14 +109,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     """A mesh of ``shape`` over the first prod(shape) of ``devices`` (every
     card of this host by default). Raises ``RuntimeError`` where there are
     fewer devices, and ``ValueError`` where the list names one CUDA device
-    twice or mixes the CPU with cards (the CPU may be named any number of
-    times: one process each)."""
+    twice or mixes device types (the CPU and ``meta`` may be named any
+    number of times: one process each). Over ``meta`` devices the mesh is
+    abstract and stands for rank 0."""
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
     if devices is None:
         devices = visible_cards()
     named = [torch.device(d) for d in devices]
+    if named and all(d.type == "meta" for d in named):
+        return _abstract_mesh(shape, axes, len(named))
     cards = [torch.device("cuda", d.index or 0) for d in named if d.type == "cuda"]
     if len(set(cards)) != len(cards):
         raise ValueError(f"a CUDA device is named twice in {[str(d) for d in named]}")
@@ -92,6 +139,19 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
             raise ValueError(f"world of {dist.get_world_size()} ranks for a mesh of {n}")
         mesh.rank = dist.get_rank()
         mesh.groups = _axis_groups(shape, axes, mesh.rank)
+    return mesh
+
+
+def _abstract_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], given: int) -> Mesh:
+    from repro_torch.sharding.collectives import AbstractGroup
+    n = math.prod(shape)
+    if given < n:
+        raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs {n} devices; "
+                           f"{given} given")
+    arr = np.empty(n, dtype=object)
+    arr[:] = [torch.device("meta")] * n
+    mesh = Mesh(arr.reshape(shape), axes, 0)
+    mesh.groups = {a: AbstractGroup(e, 0) for a, e in zip(axes, shape)}
     return mesh
 
 

@@ -18,7 +18,9 @@ of 16 over 4 ranks) is all-gathered over the model group, and the rank
 takes the kv heads its query heads read. QK-norm and rope act on the local
 heads, and the flash kernel gets the local head counts; the row-parallel
 ``wo`` all-reduces the heads' partial sums. Where ``wq`` is cut off a head
-boundary the rank gathers every head and computes them all.
+boundary the rank gathers every head and computes them all. Prefill and
+decode take the same cut (the dry run serves a rank's share): the cache
+holds the kv heads the rank computes.
 """
 from __future__ import annotations
 
@@ -41,10 +43,12 @@ def cache_len(max_len: int, window: int) -> int:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                  window: int = 0, dtype=torch.bfloat16, device=None) -> Cache:
-    """Empty KV cache of one attention layer."""
+                  window: int = 0, dtype=torch.bfloat16, device=None,
+                  kv_heads: int = 0) -> Cache:
+    """Empty KV cache of one attention layer (``kv_heads``: the heads a
+    rank of a model group holds, all of them by default)."""
     L = cache_len(max_len, window)
-    shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, L, kv_heads or cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((L,), -1, dtype=torch.int32, device=device)}
@@ -131,12 +135,13 @@ class Attention(nn.Module):
         positions = torch.arange(S, device=x.device)
         q, k, v = self._project_qkv(x, positions)
         out = flash_attention(q, k, v, causal=True, window=self.window)
-        y = self.wo(out.reshape(B, S, self.cfg.q_dim))
+        y = self.wo(out.reshape(B, S, -1))
         L = cache_len(max(max_len or S, S), self.window)
         keep = min(L, S)
         kv_pos = positions[S - keep:]
         slots = kv_pos % L
-        cache = init_kv_cache(self.cfg, B, L, dtype=k.dtype, device=x.device)
+        cache = init_kv_cache(self.cfg, B, L, dtype=k.dtype, device=x.device,
+                              kv_heads=k.shape[2])
         cache["k"][:, slots] = k[:, S - keep:]
         cache["v"][:, slots] = v[:, S - keep:]
         cache["pos"][slots] = kv_pos.to(torch.int32)
@@ -158,4 +163,4 @@ class Attention(nn.Module):
         cache["pos"][slot] = cur_pos
         o = decode_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
                              cur_pos, window=self.window)
-        return self.wo(o.reshape(B, 1, self.cfg.q_dim)), cache
+        return self.wo(o.reshape(B, 1, -1)), cache

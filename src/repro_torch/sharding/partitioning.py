@@ -35,11 +35,16 @@ forward, identity backward: partial sums of a row-parallel product),
 ``gather`` / ``split`` (a dim cut over the group to whole and back),
 ``reduce_scatter`` (partial sums to this rank's block of the sequence,
 under sequence parallelism), and the experts' all-to-all over the data
-group. A tensor is either replicated
+group, each through ``sharding.collectives``. A tensor is either replicated
 (every model rank holds it, and in the backward pass its whole gradient)
 or cut (each rank its block or its partial sum); these are the only
 crossings. Over a group of one rank each is the identity: no collective is
 issued.
+
+FSDP (``fsdp_cut``): a parameter stored as its block of the data axes is
+gathered whole (``_GatherShard``: all-gather forward, reduce-scatter
+backward) at the start of each call of the part of the model that reads
+it, and dropped at its end.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import collectives as coll
 
 Shape = Tuple[int, ...]
 Tree = Mapping[str, Shape]
@@ -368,7 +374,7 @@ def gather_cut(parts: Sequence[torch.Tensor], spec: Spec, mesh) -> torch.Tensor:
 
 def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    coll.all_gather_list(parts, x.contiguous(), group)
     return torch.cat(parts, dim=dim)
 
 
@@ -380,7 +386,7 @@ def _narrow(x: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
 def _reduce_scatter(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, group=group)
+    coll.reduce_scatter_into(out, x, group)
     return out.movedim(0, dim)
 
 
@@ -392,17 +398,13 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.mp.group)
-        return g, None
+        return coll.all_reduce(g.contiguous().clone(), ctx.mp.group), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mp):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=mp.group)
-        return y
+        return coll.all_reduce(x.contiguous().clone(), mp.group)
 
     @staticmethod
     def backward(ctx, g):
@@ -448,8 +450,7 @@ def _exchange(x: torch.Tensor, group, size: int) -> torch.Tensor:
     [size · A, E / size, ...]."""
     A, E = x.shape[:2]
     send = x.reshape((A, size, E // size) + tuple(x.shape[2:])).transpose(0, 1).contiguous()
-    out = torch.empty_like(send)
-    dist.all_to_all_single(out, send, group=group)
+    out = coll.all_to_all_into(torch.empty_like(send), send, group)
     return out.reshape((size * A, E // size) + tuple(x.shape[2:]))
 
 
@@ -457,8 +458,8 @@ def _unexchange(y: torch.Tensor, group, size: int) -> torch.Tensor:
     """The inverse of ``_exchange``: [size · A, E / size, ...] -> [A, E, ...]."""
     SA, e = y.shape[:2]
     A = SA // size
-    out = torch.empty_like(y.contiguous())
-    dist.all_to_all_single(out, y.contiguous(), group=group)
+    y = y.contiguous()
+    out = coll.all_to_all_into(torch.empty_like(y), y, group)
     out = out.reshape((size, A, e) + tuple(y.shape[2:])).transpose(0, 1)
     return out.reshape((A, size * e) + tuple(y.shape[2:]))
 
@@ -527,7 +528,7 @@ class ModelParallel:
         """The elementwise max over the group, no gradient."""
         x = x.detach().clone()
         if self.size > 1:
-            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+            coll.all_reduce(x, self.group, op=dist.ReduceOp.MAX)
         return x
 
     def to_experts(self, buf: torch.Tensor) -> torch.Tensor:
@@ -545,6 +546,81 @@ class ModelParallel:
 
 
 NONE = ModelParallel()
+
+
+# ------------------------------------------------------------------ FSDP
+
+
+class _GatherShard(torch.autograd.Function):
+    """A leaf's FSDP cut -> the leaf (all-gather along ``dim``); the
+    gradient back to the cut (reduce-scatter: the sum over the group)."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        x = shard.movedim(dim, 0).contiguous()
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        coll.all_gather_into(out, x, group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.size), None, None, None
+
+
+@dataclass(frozen=True)
+class ShardCut:
+    """A parameter's FSDP cut: the dim, the group it is cut over, the
+    group's size and this rank's block."""
+    dim: int
+    group: Any
+    size: int
+    index: int
+
+
+# the methods through which a part of the model reads its parameters
+_READERS = {"layers": ("forward", "prefill", "decode"), "embed": ("forward", "unembed"),
+            "head": ("forward",), "final_norm": ("forward",)}
+
+
+def fsdp_cut(model, cuts: Mapping[str, ShardCut]) -> None:
+    """Cut ``model``'s parameters named in ``cuts`` to this rank's block
+    (FSDP): each is stored as its block, and each part of the model that
+    reads it (a layer, the embedding, the head, the final norm) gathers it
+    whole at the start of every call of its ``forward`` (and ``prefill``,
+    ``decode``, ``unembed``) and drops it at the end. Under remat the
+    recomputation calls the layer again, so it gathers again; in the
+    backward pass the gradient is reduce-scattered onto the block."""
+    parts: Dict[Any, list] = {}
+    for name, cut in cuts.items():
+        owner_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        p = owner._parameters[attr]
+        n = p.shape[cut.dim] // cut.size
+        block = p.detach().narrow(cut.dim, cut.index * n, n).clone()
+        shard = torch.nn.Parameter(block, requires_grad=p.requires_grad)
+        owner._parameters[attr] = shard
+        top = name.split(".")[0]
+        part = model.layers[int(name.split(".")[1])] if top == "layers" else \
+            model.get_submodule(top)
+        parts.setdefault((top, part), []).append((owner, attr, cut))
+    for (top, part), held in parts.items():
+        for method in _READERS[top]:
+            if hasattr(part, method):
+                setattr(part, method, _gathering(getattr(part, method), held))
+
+
+def _gathering(fn, held):
+    def call(*args, **kwargs):
+        shards = [owner._parameters[attr] for owner, attr, _ in held]
+        for (owner, attr, cut), shard in zip(held, shards):
+            owner._parameters[attr] = _GatherShard.apply(shard, cut.dim, cut.group, cut.size)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for (owner, attr, _), shard in zip(held, shards):
+                owner._parameters[attr] = shard
+    return call
 
 
 def model_parallel(mesh, *, sequence_parallel: bool = False,

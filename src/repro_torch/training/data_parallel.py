@@ -39,6 +39,15 @@ divisible free dim is held whole, as in JAX. A step:
    group into the rank's block of the stacked leaf and copied into each
    layer.
 
+FSDP (the dry run's training layout, ``param_specs(..., fsdp=True)``; no
+launcher asks for it): ``fsdp_layout`` stores each leaf the spec cuts over
+data axes as the rank's block (``partitioning.fsdp_cut``: gathered before
+the layer that reads it, again in remat's recomputation, its gradient
+reduce-scattered back onto the block), and m, v and the master live on the
+same block, as the JAX dry run lays the state out; step 2 then only divides
+such a leaf's gradient, step 5 copies the block back. Every collective goes
+through ``sharding.collectives``, so a cost counter sees it.
+
 The losses and norm agree with one device to float32 rounding: sums over
 ranks add in another order. ``state_leaves`` gathers the cuts over both
 groups into the JAX checkpoint layout (``partitioning.gather_cut``) and
@@ -55,24 +64,26 @@ import torch.distributed as dist
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import model as M
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import partitioning as pt
 from repro_torch.training.optimizer import (adamw_leaf, bias_corrections, clip_factor,
                                             quantize)
 from repro_torch.training.train_step import Batch, make_grads_fn
 
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
 
 class Comm(NamedTuple):
     """The data group of a mesh: its process group, extent and this rank's
     index in it; the mesh (``None``: this process alone) and the rank's
-    ``ModelParallel``."""
+    ``ModelParallel``. ``expert_rest``: where the data group holds more
+    ranks than the experts are cut over (``mp.data_size``; the dry run's
+    pure-FSDP layout with expert parallelism), the group of the ranks that
+    hold the same experts, over which their gradients are summed."""
     group: object
     size: int
     rank: int
     mesh: object = None
     mp: pt.ModelParallel = pt.NONE
+    expert_rest: object = None
 
 
 class Leaf(NamedTuple):
@@ -81,7 +92,8 @@ class Leaf(NamedTuple):
     of its parameters and of its optimizer state, the dim of the
     parameters' block that the optimizer state is cut along over the data
     group (``None``: the block whole), and whether it acts on the
-    sequence-cut residual (the norms)."""
+    sequence-cut residual (the norms), and whether the rank stores its
+    parameters as an FSDP cut (``fsdp_cut``)."""
     key: str
     names: Tuple[str, ...]
     stacked: bool
@@ -90,6 +102,7 @@ class Leaf(NamedTuple):
     param_spec: pt.Spec
     opt_spec: pt.Spec
     seq_cut: bool
+    fsdp: bool = False
 
     @property
     def data_cut(self) -> bool:
@@ -114,14 +127,16 @@ class ShardedState(NamedTuple):
     master: Dict[str, torch.Tensor]
 
 
-def leaf_layout(model: M.CausalLM, mesh, zero1: bool) -> List[Leaf]:
+def leaf_layout(model: M.CausalLM, mesh, zero1: bool, *, fsdp: bool = False,
+                tp: int = 0) -> List[Leaf]:
     """The JAX leaves of ``model`` (a rank's model: the names, its config)
-    with their ``param_specs`` and ``zero1_specs`` (``param_specs`` where
-    ``zero1`` is off) on ``mesh``."""
+    with their ``param_specs`` (``fsdp``, ``tp``: its arguments) and
+    ``zero1_specs`` (``param_specs`` where ``zero1`` is off, and under FSDP,
+    as the JAX dry run lays the state out) on ``mesh``."""
     cfg = model.cfg
     shapes = pt.param_shape_tree(M.CausalLM(cfg, device="meta"))
-    pspecs = pt.param_specs(shapes, cfg, mesh)
-    specs = pt.zero1_specs(pspecs, shapes, mesh) if zero1 else pspecs
+    pspecs = pt.param_specs(shapes, cfg, mesh, fsdp=fsdp, tp=tp)
+    specs = pt.zero1_specs(pspecs, shapes, mesh) if zero1 and not fsdp else pspecs
     names: Dict[str, List[str]] = {}
     stacked: Dict[str, bool] = {}
     for name, _ in model.named_parameters():
@@ -136,6 +151,39 @@ def leaf_layout(model: M.CausalLM, mesh, zero1: bool) -> List[Leaf]:
         out.append(Leaf(key, tuple(ns), stacked[key], shapes[path],
                         pt.data_dim(specs[path]) if extra else None, pspecs[path],
                         specs[path], ns[0] in seq_cut))
+    return out
+
+
+def fsdp_layout(model: M.CausalLM, layout: List[Leaf], mesh) -> List[Leaf]:
+    """Cut ``model`` (a rank's model, built whole but for its model-group
+    cut) to the FSDP layout of ``layout`` (``leaf_layout(..., fsdp=True)``)
+    on ``mesh`` (``partitioning.fsdp_cut``): each leaf whose spec cuts a dim
+    over data axes that the model holds whole is stored as this rank's
+    block, and m, v and the master live on the same block. Returns the
+    layout with those leaves marked. A spec that cuts the repeat dim of a
+    stacked leaf (whole layers on some ranks) is not taken."""
+    mp_specs = pt.param_specs(pt.param_shape_tree(M.CausalLM(model.cfg, device="meta")),
+                              model.cfg, model.mp)
+    coords = mesh.coords()
+    cuts, out = {}, []
+    for leaf in layout:
+        d = pt.data_dim(leaf.param_spec)
+        held = pt.data_dim(mp_specs[leaf.key.replace(".", "/")]) is not None
+        if d is None or held:
+            out.append(leaf)
+            continue
+        if leaf.stacked and d == 0:
+            raise NotImplementedError(f"{leaf.key}: FSDP over the repeat dim of {leaf.shape}")
+        axes = leaf.param_spec[d]
+        size, index = pt._block(axes, coords, mesh.shape)
+        if size == 1:                 # nothing to cut
+            out.append(leaf)
+            continue
+        dim = d - 1 if leaf.stacked else d
+        cut = pt.ShardCut(dim, mesh.group(axes), size, index)
+        cuts.update({n: cut for n in leaf.names})
+        out.append(leaf._replace(fsdp=True))
+    pt.fsdp_cut(model, cuts)
     return out
 
 
@@ -158,7 +206,7 @@ def _gather(cut: torch.Tensor, leaf: Leaf, comm: Comm) -> torch.Tensor:
     if leaf.dim is None:
         return cut
     out = cut.new_empty((leaf.shape[leaf.dim],) + tuple(cut.shape[1:]))
-    _all_gather(out, cut, group=comm.group)
+    coll.all_gather_into(out, cut, comm.group)
     return out.movedim(0, leaf.dim)
 
 
@@ -202,7 +250,7 @@ def _whole(block: torch.Tensor, spec: pt.Spec, comm: Comm) -> torch.Tensor:
     """The whole leaf from every rank's block under ``spec``, gathered over
     the world (``gather_cut``)."""
     parts = [torch.empty_like(block) for _ in range(comm.mesh.size)]
-    dist.all_gather(parts, block.contiguous())
+    coll.all_gather_list(parts, block.contiguous(), None)
     return pt.gather_cut(parts, spec, comm.mesh)
 
 
@@ -263,9 +311,7 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, layout: List[Leaf], c
     mp = comm.mp
 
     def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
-        t = t.clone()
-        dist.all_reduce(t, group=comm.group)
-        return t * inv
+        return coll.all_reduce(t.clone(), comm.group) * inv
 
     grads_fn = make_grads_fn(cfg, tcfg, moe_groups=1,
                              moe_mean=mean_over_ranks if cfg.moe is not None else None)
@@ -274,23 +320,26 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, layout: List[Leaf], c
     def reduce(g: torch.Tensor, leaf: Leaf, seq_cut: bool) -> torch.Tensor:
         g = g.float()
         if seq_cut and leaf.seq_cut:
-            dist.all_reduce(g, group=mp.group)
+            coll.all_reduce(g, mp.group)
+        if leaf.fsdp:                 # summed onto the cut by the gather's backward
+            return g.mul_(inv)
         if leaf.experts:              # whole through the experts' all-to-all
+            if comm.expert_rest is not None:
+                coll.all_reduce(g, comm.expert_rest)
             return g.mul_(inv)
         if leaf.dim is None:
-            dist.all_reduce(g, group=comm.group)
+            coll.all_reduce(g, comm.group)
         else:
             g = g.movedim(leaf.dim, 0).contiguous()
             out = g.new_empty((g.shape[0] // comm.size,) + tuple(g.shape[1:]))
-            _reduce_scatter(out, g, group=comm.group)
+            coll.reduce_scatter_into(out, g, comm.group)
             g = out
         return g.mul_(inv)
 
     def summed(x: torch.Tensor, where: List[bool], group):
         """x [leaves] with the ``where`` entries summed over ``group``."""
         mask = torch.tensor(where, device=x.device)
-        part = torch.where(mask, x, 0.0)
-        dist.all_reduce(part, group=group)
+        part = coll.all_reduce(torch.where(mask, x, 0.0), group)
         return torch.where(mask, part, x)
 
     def step(state: ShardedState, batch: Batch):
@@ -306,9 +355,9 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, layout: List[Leaf], c
         keys = [leaf.key for leaf in layout]
         if tcfg.grad_compression == "int8":
             peaks = torch.stack([g[k].abs().max() for k in keys])
-            dist.all_reduce(peaks, op=dist.ReduceOp.MAX, group=comm.group)
+            coll.all_reduce(peaks, comm.group, op=dist.ReduceOp.MAX)
             if mp.size > 1:
-                dist.all_reduce(peaks, op=dist.ReduceOp.MAX, group=mp.group)
+                coll.all_reduce(peaks, mp.group, op=dist.ReduceOp.MAX)
             g = {k: quantize(g[k], peaks[i]) for i, k in enumerate(keys)}
         sq = torch.stack([torch.sum(torch.square(g[k])) for k in keys])
         sq = summed(sq, [leaf.data_cut for leaf in layout], comm.group)

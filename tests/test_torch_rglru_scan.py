@@ -76,8 +76,14 @@ def test_rglru_scan_wrapper_rejects_bad_inputs():
         ops.rglru_scan(a, b[:, :4], h0)
     with pytest.raises(ValueError):
         ops.rglru_scan(a, b, h0[:, :8])
-    with pytest.raises(ValueError):                   # neither the CPU nor CUDA
-        ops.rglru_scan(a.to("meta"), b.to("meta"), h0.to("meta"))
+    # meta (the dry run's device) is taken since the cost tooling: the
+    # kernel's output shape and no launch; a mismatch still raises there
+    launches = ops.rglru_scan.launches
+    h = ops.rglru_scan(a.to("meta"), b.to("meta"), h0.to("meta"))
+    assert h.device.type == "meta" and h.shape == a.shape and h.dtype == b.dtype
+    assert ops.rglru_scan.launches == launches
+    with pytest.raises(ValueError):
+        ops.rglru_scan(a.to("meta"), b[:, :4].to("meta"), h0.to("meta"))
 
 
 # ---------------------------------------------------------------- split S
