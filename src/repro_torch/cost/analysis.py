@@ -29,9 +29,7 @@ counts each aten op as it is dispatched, on the card, on the CPU or on the
   tensors of ``live`` (parameters, optimizer state, caches: whatever
   exists before the counted call) count from the start.
 * ``kernel_detail``: launches, FLOPs and bytes by kernel; on ``meta`` the
-  launches the card would make. ``plain_versions``: kernels whose plain
-  PyTorch version ran in their place (on ``meta`` under autograd, where a
-  kernel has no backward), by calls.
+  launches the card would make.
 
 The HLO counter's XLA-only keys have no counterpart here: ``convert_bytes``
 and ``hbm_bytes_tpu`` (bf16<->f32 converts that only XLA:CPU inserts) and
@@ -112,7 +110,6 @@ class CostCounter(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.collective: Dict[str, float] = defaultdict(float)
         self.kernels: Dict[str, Dict[str, float]] = {}
-        self.plain: Dict[str, int] = defaultdict(int)
         self.ops = 0
         self._live: Dict[int, int] = {}
         self.current = 0
@@ -185,19 +182,13 @@ class CostCounter(TorchDispatchMode):
                 "collective_bytes": sum(self.collective.values()),
                 "collective_detail": dict(self.collective), "peak_bytes": self.peak,
                 "kernel_detail": {k: dict(v) for k, v in sorted(self.kernels.items())},
-                "plain_versions": dict(self.plain), "ops": self.ops}
+                "ops": self.ops}
 
 
 def report_kernel(name: str, flops: float, nbytes: float) -> None:
     """A kernel of the port ran (or, on ``meta``, would run) with this work."""
     for c in _ACTIVE:
         c.kernel(name, flops, nbytes)
-
-
-def report_plain(name: str) -> None:
-    """A kernel's plain PyTorch version ran in its place."""
-    for c in _ACTIVE:
-        c.plain[name] += 1
 
 
 def report_collective(kind: str, payload: float, n: int) -> None:

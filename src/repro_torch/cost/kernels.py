@@ -68,6 +68,29 @@ def mlstm(B: int, S: int, H: int, dqk: int, dv: int, chunk: int, itemsize: int =
     return flops, nbytes
 
 
+def mlstm_backward(B: int, S: int, H: int, dqk: int, dv: int, chunk: int,
+                   itemsize: int = 2, as_built: bool = True) -> Work:
+    """The backward of the chunkwise mLSTM at chunk ``chunk`` (a divisor of
+    S). As built (``csrc/mlstm_chunk_bwd.cu``): per chunk five [c, dqk] x
+    [dqk, dv]-sized products (the state recomputed, its gradient walked
+    back, q C^T in dq, v dC^T in dk, k dC in dv), over the causal pairs the
+    scores twice, dP = dh v^T and dS k, dS^T q, W^T dh, and the vector terms
+    (the n state and its gradient, q . n, dh . h). ``as_built=False`` counts
+    the backward's own work, the bound's: the chunk-start states taken as
+    given (no recompute) and the scores once. q, k, v, h, dh and the float32
+    gates in, dq, dk, dv and the float32 di, df out; the float32 scratch
+    between the kernel's launches is not counted."""
+    c = chunk
+    pairs = c * (c + 1) // 2
+    if as_built:
+        per_chunk = 10 * c * dqk * dv + pairs * (8 * dqk + 4 * dv) + 6 * c * dqk + 2 * c * dv
+    else:
+        per_chunk = 8 * c * dqk * dv + pairs * (6 * dqk + 4 * dv) + 4 * c * dqk + 2 * c * dv
+    flops = B * H * (S // c) * per_chunk
+    nbytes = itemsize * B * S * H * (4 * dqk + 4 * dv) + 4 * 4 * B * S * H
+    return flops, nbytes
+
+
 def rglru_forward(B: int, S: int, W: int, itemsize: int = 4, out_itemsize: int = 4) -> Work:
     """One multiply-add a step and channel (float32 carry); a and b in, h0
     in (float32), h out."""

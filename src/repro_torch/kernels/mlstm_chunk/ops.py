@@ -15,18 +15,30 @@ tensor goes to the plain version (``ref.py``). A CUDA tensor launches
   TF32, which would not hold the float32 tolerance.
 
 Unlike the JAX wrapper it can return the final state ``(C, n, m)``, which the
-model's prefill caches. ``mlstm_chunk.launches`` counts calls that launched
-the kernels (one for the bf16 pair). The kernels have no backward yet: a
-CUDA call that autograd would record raises ``NotImplementedError``; on the
-CPU the plain version carries autograd.
+model's prefill caches.
 
-A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch:
-outputs of the kernels' shapes and the scratch the bf16 path allocates,
-and no launch. Where autograd would record a meta call there is no kernel
-to stand for, so the plain version runs on ``meta`` (as on the CPU) and
-says so to an active cost counter (``cost.analysis.report_plain``). On
-``meta`` and on the card each kernel call reports its work
-(``cost.kernels``) to the counter.
+Training: where autograd records (grad mode on and an input that requires
+grad), ``mlstm_chunk`` runs through ``MLSTMChunkFunction``. Its forward is
+the same kernels (or plain version) and saves q, k, v, the gates and h; its
+backward calls ``mlstm_chunk_backward``: on the card
+``csrc/mlstm_chunk_bwd.cu`` (six launches on CUDA cores, float32 or
+bfloat16, no atomics: a second call gives the same bits), on the CPU the
+explicit formulas of ``ref.mlstm_chunk_backward_reference``, so the CPU
+tests check what the kernel computes. Both hold the stabilisers constant,
+which is the exact gradient (``ref.py``). A final state returned under
+autograd is detached: the model caches it only in prefill, which takes no
+gradient. The backward's float32 scratch (``workspace_floats``) is allocated
+here.
+
+``mlstm_chunk.launches`` counts calls that launched the forward kernels (one
+for the bf16 pair) and ``mlstm_chunk_backward.launches`` backward calls that
+launched their kernels (one a call, however many kernels it launches).
+
+A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch,
+forward and backward: outputs of the kernels' shapes and the scratch the
+CUDA path allocates, and no launch. On ``meta`` and on the card each kernel
+call reports its work (``cost.kernels.mlstm``, ``cost.kernels.mlstm_backward``)
+to an active cost counter (``cost.analysis``).
 """
 from __future__ import annotations
 
@@ -39,13 +51,16 @@ import torch
 from repro_torch.cost import analysis, kernels as work
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import PLAN_VALUES, TensorMapPlan, tensor_map_plan
-from repro_torch.kernels.mlstm_chunk.ref import chunk_size, mlstm_chunk_reference
+from repro_torch.kernels.mlstm_chunk.ref import (chunk_size, mlstm_chunk_backward_reference,
+                                                 mlstm_chunk_reference)
 
 MAX_CHUNK = 256
 MAX_DQK = 512
 BLOCK = 64           # rows of a TMA box: a query tile, a dqk tile, a slab of a chunk
 MIN_TC_DIM = 64      # the bf16 kernels' least dqk and dv: one box wide
 PLANS = 4            # q, k, v and the interior-chunk state
+TILE = 64            # the backward's output tiles: rows, dqk and dv columns
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
@@ -58,6 +73,16 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [i64p, ctypes.c_void_p])
     for fn in (lib.mlstm_chunk_fwd_f32, lib.mlstm_chunk_fwd_bf16):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("mlstm_chunk_bwd")
+    lib.mlstm_chunk_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+                                    + [ctypes.c_int64] + [ctypes.c_int] * 6
+                                    + [ctypes.c_void_p])
+    lib.mlstm_chunk_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -170,32 +195,119 @@ def _launch(q, k, v, i_log, f_log, chunk: int):
     return h, (C, n, m)
 
 
+def workspace_floats(B: int, S: int, H: int, dqk: int, dv: int, c: int) -> int:
+    """The backward kernels' float32 scratch (``csrc/mlstm_chunk_bwd.cu``,
+    ``workspace_floats``): per position the gate terms, N, dden, dlogD's row
+    sums and the partial column and row sums; per chunk the decay and the
+    partial dots; the chunk-start states and their gradients (C [dqk, dv]
+    and n [dqk] each); dS and W [c, c] of every chunk."""
+    BH, T = B * H, S // c
+    R, DT, ET = -(-c // TILE), -(-dqk // TILE), -(-dv // TILE)
+    return (BH * S * (8 + R + 2 * DT) + BH * T * (1 + DT * ET + DT)
+            + 2 * BH * T * dqk * (dv + 1) + 2 * BH * S * c)
+
+
+def mlstm_chunk_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         i_log: torch.Tensor, f_log: torch.Tensor, h: torch.Tensor,
+                         dh: torch.Tensor, *, chunk: int = 256):
+    """dq, dk, dv (q's, k's and v's dtype) and di, df (float32) of
+    ``mlstm_chunk`` from its inputs, its output h and the output's gradient
+    dh [B,S,H,dv]. The plain formulas on the CPU; on the card the backward
+    kernels or an error."""
+    _check_inputs(q, k, v, i_log, f_log, chunk)
+    if h.shape != v.shape or dh.shape != v.shape or h.dtype != v.dtype or dh.dtype != v.dtype:
+        raise ValueError(f"h and dh must be {tuple(v.shape)} {v.dtype}, got "
+                         f"{tuple(h.shape)} {h.dtype}, {tuple(dh.shape)} {dh.dtype}")
+    if q.device.type == "cpu":
+        return mlstm_chunk_backward_reference(q, k, v, i_log, f_log, h, dh, chunk=chunk)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch_backward(q, k, v, i_log, f_log, h, dh, chunk)
+
+
+def _launch_backward(q, k, v, i_log, f_log, h, dh, chunk: int):
+    """Launch the backward kernels for CUDA tensors; returns dq, dk, dv, di,
+    df."""
+    B, S, H, dqk = q.shape
+    dv = v.shape[-1]
+    if i_log.dtype != torch.float32 or f_log.dtype != torch.float32:
+        raise ValueError("mlstm_chunk backward kernel takes float32 gates")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"mlstm_chunk backward kernel takes chunks up to {MAX_CHUNK}, "
+                         f"got {chunk}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"mlstm_chunk backward kernel takes float32/bfloat16, got {q.dtype}")
+    c = chunk_size(S, chunk)
+    if B * H * (S // c) > 65535:
+        raise ValueError(f"B*H*chunks = {B * H * (S // c)} exceeds the backward kernel's "
+                         "grid limit 65535")
+    # the kernels take contiguous [B, S, H, d] rows (a copy only where
+    # autograd hands over another layout)
+    q, k, v, i_log, f_log, h, dh = (t.contiguous() for t in (q, k, v, i_log, f_log, h, dh))
+    dq, dk, dv_, di, df = (torch.empty_like(t) for t in (q, k, v, i_log, f_log))
+    floats = workspace_floats(B, S, H, dqk, dv, c)
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
+    if analysis.counting():
+        analysis.report_kernel("mlstm_chunk_backward", *work.mlstm_backward(
+            B, S, H, dqk, dv, c, q.element_size()))
+    if q.device.type == "meta":
+        return dq, dk, dv_, di, df
+    lib = _bwd_lib()
+    tensors = (q, k, v, i_log, f_log, h, dh, dq, dk, dv_, di, df, ws)
+    with torch.cuda.device(q.device):
+        err = lib.mlstm_chunk_bwd(_DTYPES[q.dtype], *(t.data_ptr() for t in tensors), floats,
+                                  B, S, H, dqk, dv, c, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "mlstm_chunk_backward")
+    mlstm_chunk_backward.launches += 1
+    return dq, dk, dv_, di, df
+
+
+def _forward(q, k, v, i_log, f_log, chunk: int):
+    if q.device.type == "cpu":
+        return mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk, return_state=True)
+    return _launch(q, k, v, i_log, f_log, chunk)
+
+
+class MLSTMChunkFunction(torch.autograd.Function):
+    """``mlstm_chunk`` with a gradient: the forward kernels (or plain
+    version), then the backward kernels (or the plain formulas) for dq, dk,
+    dv, di and df. Returns h and the final state, which is detached."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_log, f_log, chunk: int):
+        h, (C, n, m) = _forward(q, k, v, i_log, f_log, chunk)
+        ctx.save_for_backward(q, k, v, i_log, f_log, h)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(C, n, m)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        q, k, v, i_log, f_log, h = ctx.saved_tensors
+        return (*mlstm_chunk_backward(q, k, v, i_log, f_log, h, dh, chunk=ctx.chunk), None)
+
+
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 i_log: torch.Tensor, f_log: torch.Tensor, *, chunk: int = 256,
                 return_state: bool = False):
     """q,k: [B,S,H,dqk]; v: [B,S,H,dv]; i_log/f_log: [B,S,H] float32.
 
     Returns h [B,S,H,dv] in v's dtype and, with ``return_state``, the final
-    float32 state ``(C [B,H,dqk,dv], n [B,H,dqk], m [B,H])``.
+    float32 state ``(C [B,H,dqk,dv], n [B,H,dqk], m [B,H])`` (detached
+    under autograd).
     """
     _check_inputs(q, k, v, i_log, f_log, chunk)
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_log, f_log)):
+        h, *state = MLSTMChunkFunction.apply(q, k, v, i_log, f_log, chunk)
+        return (h, tuple(state)) if return_state else h
     if q.device.type == "cpu":
         return mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk,
                                      return_state=return_state)
-    if q.device.type not in ("cuda", "meta"):
-        raise ValueError(f"unsupported device {q.device}")
-    records = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v, i_log, f_log))
-    if records and q.device.type == "meta":
-        analysis.report_plain("mlstm_chunk")
-        return mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk,
-                                     return_state=return_state)
-    if records:
-        raise NotImplementedError(
-            "mlstm_chunk has no backward kernel yet, so xLSTM does not train on the "
-            "card (ROADMAP.md, 2.H); the plain version trains on the CPU")
     h, state = _launch(q, k, v, i_log, f_log, chunk)
     return (h, state) if return_state else h
 
 
 mlstm_chunk.launches = 0
+mlstm_chunk_backward.launches = 0

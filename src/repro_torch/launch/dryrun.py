@@ -26,8 +26,8 @@ with ``status: "error"`` and the run exits 1.
 The step is the port's program: a rank of a model group serving holds the
 KV heads its query heads read (every head where they do not divide the
 group) and its whole cache length, and the MoE routes a prefill's tokens as
-one group. An xLSTM training step counts the mLSTM's plain version (its
-kernel has no backward), which the record's ``cost.plain_versions`` says.
+one group. An xLSTM training step counts the mLSTM's forward and backward
+kernels (``mlstm_chunk``, ``mlstm_chunk_backward``) by their formulas.
 """
 from __future__ import annotations
 

@@ -8,10 +8,11 @@ agree. Parameter names are the JAX pytree's leaf names, so
 ``repro_torch.convert`` copies them by name; ``w_i``/``w_f``, ``out_scale``
 and ``rec`` are float32 whatever ``param_dtype`` is, as in JAX.
 
-The mLSTM prefill goes through the port's ``mlstm_chunk`` (on the card the
-CUDA kernel, which also returns the final state for the cache). The mLSTM
-decode step and the sLSTM recurrence are plain PyTorch: the JAX package has
-no kernel for either (``lax.scan`` for sLSTM). Decode steps update the cache
+The mLSTM train forward and prefill go through the port's ``mlstm_chunk``
+(on the card the CUDA kernels: the forward, which also returns the final
+state for the cache, and under autograd the backward). The mLSTM decode
+step and the sLSTM recurrence are plain PyTorch: the JAX package has no
+kernel for either (``lax.scan`` for sLSTM). Decode steps update the cache
 dict in place: ``C`` and ``n`` are rescaled and accumulated in their own
 storage, ``m`` and ``conv`` (and the sLSTM ``h, c, n, m``) are replaced.
 
@@ -134,8 +135,9 @@ class MLSTMBlock(nn.Module):
         return self.w_down(h, seq_cut)
 
     def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
-        """Train mode (``mlstm_block_forward``): x [B,S,D] -> [B,S,D]. On the
-        card ``mlstm_chunk`` raises under autograd (no backward kernel yet)."""
+        """Train mode (``mlstm_block_forward``): x [B,S,D] -> [B,S,D]; under
+        autograd ``mlstm_chunk``'s backward kernel (the plain formulas on the
+        CPU) gives the gradients."""
         _, g, q, k, v, i_log, f_log = self._gate_and_qkvif(x)
         return self._out(mlstm_chunk(q, k, v, i_log, f_log, chunk=PREFILL_CHUNK), g,
                          seq_cut)
@@ -197,10 +199,22 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
             "m": torch.zeros((batch, H), **f32)}
 
 
-def slstm_cell(rec: torch.Tensor, xz, xi, xf, xo, state: Cache) -> Cache:
-    """One step. x*: [B,H,dh] float32 input projections; rec [4,H,dh,dh]."""
+def recurrent_weights(rec: torch.Tensor) -> torch.Tensor:
+    """rec [4,H,dh,dh] laid out once per sequence as [H, dh, 4·dh], the
+    operand of each step's product. ``einsum("bhd,ghde->gbhe")`` makes this
+    copy at every step, and autograd keeps each one: 16 MB a step at
+    xlstm-1.3b's widths, 34 GB over a 2048-token training sequence."""
+    g, H, dh, _ = rec.shape
+    return rec.permute(1, 2, 0, 3).reshape(H, dh, g * dh)
+
+
+def slstm_cell(rec_t: torch.Tensor, xz, xi, xf, xo, state: Cache) -> Cache:
+    """One step. x*: [B,H,dh] float32 input projections; rec_t
+    ``recurrent_weights(rec)`` [H, dh, 4·dh]."""
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    r = torch.einsum("bhd,ghde->gbhe", h, rec)            # (z, i, f, o)
+    B, H, dh = h.shape
+    # einsum("bhd,ghde->gbhe", h, rec) as the einsum computes it: one bmm
+    r = torch.bmm(h.transpose(0, 1), rec_t).view(H, B, 4, dh).permute(2, 1, 0, 3)
     z = torch.tanh(xz + r[0])
     i_log = (xi + r[1]).mean(dim=-1)                      # per-head scalar gates
     f_log = F.logsigmoid((xf + r[2]).mean(dim=-1))
@@ -263,9 +277,10 @@ class SLSTMBlock(nn.Module):
         and the final state."""
         xz, xi, xf, xo = self._inputs(x)
         state = init_slstm_cache(self.cfg, x.shape[0], device=x.device)
+        rec_t = recurrent_weights(self.rec)
         hs = []
         for s in range(x.shape[1]):
-            state = slstm_cell(self.rec, xz[:, s], xi[:, s], xf[:, s], xo[:, s], state)
+            state = slstm_cell(rec_t, xz[:, s], xi[:, s], xf[:, s], xo[:, s], state)
             hs.append(state["h"])
         return torch.stack(hs, dim=1), state
 
@@ -281,5 +296,5 @@ class SLSTMBlock(nn.Module):
         """One token, x [B,1,D]; the new state replaces the cache's entries.
         ``cur_pos`` is unused."""
         xz, xi, xf, xo = self._inputs(x[:, 0])
-        cache.update(slstm_cell(self.rec, xz, xi, xf, xo, cache))
+        cache.update(slstm_cell(recurrent_weights(self.rec), xz, xi, xf, xo, cache))
         return self._out(cache["h"][:, None], x.dtype), cache

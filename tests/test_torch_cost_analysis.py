@@ -12,7 +12,7 @@ counts on the meta device.
   collectives on an abstract group;
 * each kernel wrapper on meta tensors returns its kernel's shapes, launches
   nothing, and reports exactly its ``cost.kernels`` formula, forward and
-  both backward kernels; the CUDA path's scratch counts in the peak;
+  the three backward kernels; the CUDA path's scratch counts in the peak;
 * the peak counts storages, not views, from their allocation to their
   release, with the ``live`` tensors from the start.
 """
@@ -190,17 +190,30 @@ def test_mlstm_on_meta_counts_its_formula_and_its_scratch(dtype):
     assert c.totals()["peak_bytes"] == held + outs + scratch
 
 
-def test_mlstm_on_meta_under_autograd_runs_and_names_its_plain_version():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlstm_on_meta_under_autograd_counts_forward_and_backward(dtype):
+    """Under autograd the meta call takes ``MLSTMChunkFunction``: the
+    forward and the backward kernels each report their formula once, no
+    plain version runs, nothing launches, and the gradients have the inputs'
+    shapes and dtypes; the backward's float32 scratch counts in the peak."""
     from repro_torch.kernels.mlstm_chunk import ops
-    B, S, H, d = 1, 64, 2, 64
-    q, k, v = (_meta(B, S, H, d, grad=True) for _ in range(3))
+    B, S, H, dqk, dv, chunk = 1, 192, 2, 64, 96, 64
+    q, k = _meta(B, S, H, dqk, dtype=dtype, grad=True), _meta(B, S, H, dqk, dtype=dtype, grad=True)
+    v = _meta(B, S, H, dv, dtype=dtype, grad=True)
     i_log, f_log = (_meta(B, S, H, dtype=torch.float32, grad=True) for _ in range(2))
+    ins = (q, k, v, i_log, f_log)
+    before = (ops.mlstm_chunk.launches, ops.mlstm_chunk_backward.launches)
     with CostCounter() as c:
-        h = ops.mlstm_chunk(q, k, v, i_log, f_log, chunk=32)
-        torch.autograd.grad(h.float().sum(), (q, k, v))
-    t = c.totals()
-    assert t["plain_versions"] == {"mlstm_chunk": 1} and t["kernel_detail"] == {}
-    assert t["flops"] > 0
+        h = ops.mlstm_chunk(*ins, chunk=chunk)
+        grads = torch.autograd.grad(h, ins, torch.empty_like(h))
+    assert [(g.shape, g.dtype) for g in grads] == [(t.shape, t.dtype) for t in ins]
+    es = q.element_size()
+    assert _kernels(c) == {
+        "mlstm_chunk": (1, *work.mlstm(B, S, H, dqk, dv, chunk, es)),
+        "mlstm_chunk_backward": (1, *work.mlstm_backward(B, S, H, dqk, dv, chunk, es))}
+    assert "plain_versions" not in c.totals()
+    assert c.totals()["peak_bytes"] >= 4 * ops.workspace_floats(B, S, H, dqk, dv, chunk)
+    assert (ops.mlstm_chunk.launches, ops.mlstm_chunk_backward.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,6 +251,14 @@ def test_the_formulas_are_chip_smokes_bounds():
                                                 4 * (3 * 4 * 512 * 2560 + 4 * 2560))
     assert work.rglru_backward(1, 3072, 2560) == (3 * 3072 * 2560,
                                                   4 * (5 * 3072 * 2560 + 2 * 2560))
+    c, dqk, dv = 256, 512, 1024                        # xlstm-1.3b's training layer
+    per_chunk = 10 * c * dqk * dv + c * (c + 1) // 2 * (8 * dqk + 4 * dv) + 6 * c * dqk \
+        + 2 * c * dv
+    assert work.mlstm_backward(1, 2048, 4, dqk, dv, c) == (
+        4 * 8 * per_chunk, 2 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)
+    own = 8 * c * dqk * dv + c * (c + 1) // 2 * (6 * dqk + 4 * dv) + 4 * c * dqk + 2 * c * dv
+    assert work.mlstm_backward(1, 2048, 4, dqk, dv, c, as_built=False) == (
+        4 * 8 * own, 2 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)
 
 
 def test_peak_counts_storages_not_views_until_released():

@@ -12,7 +12,11 @@ named; what is left is held within 2%:
   causal pairs they visit (``cost.kernels``), the backward 5 products;
 * mLSTM: JAX's ``mlstm_chunkwise`` multiplies the whole c × c block of each
   chunk (q k^T, W v and W k) and the inter-chunk products; the port's
-  kernel counts the causal pairs (``cost.kernels.mlstm``).
+  kernel counts the causal pairs (``cost.kernels.mlstm``). In a train step
+  JAX differentiates it through XLA: its forward and backward are counted
+  as one program of their own (``jax.vjp`` of ``mlstm_chunkwise`` at the
+  layer's shapes, by the same ``analyze_text``), the port's by its two
+  kernels' formulas (``cost.kernels.mlstm`` and ``mlstm_backward``).
 
 Decode attention reads every slot on both sides: no term.
 """
@@ -80,6 +84,29 @@ def _mlstm_terms(cfg, B, S):
     return jax_f, port_f
 
 
+def _mlstm_train_terms(cfg, jcfg, B, S):
+    """(JAX's, the port's) mLSTM FLOPs of one train step without remat:
+    forward and backward of every mLSTM layer."""
+    from repro.models.xlstm import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import chunk_size
+    from repro_torch.models.xlstm import mlstm_dims
+    _, H, dqk, dv = mlstm_dims(cfg)
+    c = chunk_size(S, 256)
+    n = cfg.layer_kinds().count("mlstm")
+    dt = jnp.dtype(jcfg.compute_dtype)
+    args = [jax.ShapeDtypeStruct(shape, t) for shape, t in (
+        ((B, S, H, dqk), dt), ((B, S, H, dqk), dt), ((B, S, H, dv), dt),
+        ((B, S, H), jnp.float32), ((B, S, H), jnp.float32))]
+
+    def fwd_bwd(*a):
+        h, vjp = jax.vjp(lambda *x: mlstm_chunkwise(*x, chunk=256), *a)
+        return vjp(h)
+
+    jax_f = n * _jax_flops(fwd_bwd, *args)
+    port_f = n * (work.mlstm(B, S, H, dqk, dv, c)[0] + work.mlstm_backward(B, S, H, dqk, dv, c)[0])
+    return jax_f, port_f
+
+
 def _hold(jax_total, port_total, terms):
     jax_rest = jax_total - sum(t[0] for t in terms.values())
     port_rest = port_total - sum(t[1] for t in terms.values())
@@ -99,6 +126,25 @@ def test_qwen2_train_step_flops_match_jax():
     with CostCounter() as c:
         make_train_step(cfg, tcfg)(tstate, tbatch)
     _hold(jf, c.totals()["flops"], {"attention": _attention_terms(cfg, B, S, "train")})
+
+
+def test_xlstm_train_step_flops_match_jax():
+    jcfg, cfg = _cfgs("xlstm-1.3b")
+    B, S = 2, 64
+    jtcfg, tcfg = JTrainConfig(remat="none"), TrainConfig(remat="none")
+    state = jax.eval_shape(lambda k: JS.init_state(k, jcfg), jax.random.PRNGKey(0))
+    batch = {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
+             "labels": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+    jf = _jax_flops(JS.make_train_step(jcfg, jtcfg), state, batch)
+    tstate = train_state(M.CausalLM(cfg, device="meta"))
+    tbatch = {k: torch.empty((B, S), dtype=torch.int32, device="meta") for k in batch}
+    with CostCounter() as c:
+        make_train_step(cfg, tcfg)(tstate, tbatch)
+    t = c.totals()
+    n = cfg.layer_kinds().count("mlstm")
+    assert {k: v["launches"] for k, v in t["kernel_detail"].items()} == {
+        "mlstm_chunk": n, "mlstm_chunk_backward": n}
+    _hold(jf, t["flops"], {"mlstm": _mlstm_train_terms(cfg, jcfg, B, S)})
 
 
 def test_qwen3_moe_prefill_flops_match_jax():
