@@ -12,8 +12,9 @@ Phases, each of which fails the run on any error:
    (``-Xptxas -v``; a queue register instance may have no stack frame)
    and, where ``cuobjdump`` exists, its HGMMA, UTMALDG and UBLKCP counts (an
    instance that spills, a tensor-core instance -- bf16 flash forward and
-   backward, the mLSTM state and output passes -- that lacks HGMMA or
-   UTMALDG, or a scan backward without UTMALDG, fails the run);
+   backward, the mLSTM state and output passes, the mLSTM backward's state,
+   rows, dstate and grads passes -- that lacks HGMMA or UTMALDG, or a scan
+   backward without UTMALDG, fails the run);
 2. kernels: each kernel is held against its plain PyTorch version on the
    card at the serving paths' shapes and at the JAX package's test shapes
    (attention at head_dim 16, 64, 128 and 256, bf16 3e-2, float32 2e-5,
@@ -120,7 +121,9 @@ Phases, each of which fails the run on any error:
 8. training: the three backward kernels (flash attention's: the tensor-core
    dQ, dK/dV and partial-sum kernels for bf16 at head dims 64-256, the
    CUDA-core dQ and dK/dV kernels otherwise; the RG-LRU scan's reverse
-   recurrence; the chunkwise mLSTM's six CUDA-core launches) against their
+   recurrence; the chunkwise mLSTM's five tensor-core launches for bf16 at
+   dqk and dv of 64 and up, its six CUDA-core launches otherwise, each
+   check record naming its path) against their
    plain formulas on the card (the mLSTM's dq, dk, dv, di, df at
    xlstm-1.3b's training layer [1, 2048, 4, 512, 1024] and prefill batch,
    the launchers' reduced shapes, S 300, one chunk, dqk != dv below 64 and
@@ -305,7 +308,8 @@ BUILD_REPORTS = {
     "decode_attention": ("decode_build", r"decode_split_kernel", {}),
     "mlstm_chunk": ("mlstm_build", r"mlstm_(state|out|chunk)_kernel",
                     {r"mlstm_(state|out)": TENSOR_CORE}),
-    "mlstm_chunk_bwd": ("mlstm_bwd_build", r"mlstm_bwd_\w+_kernel", {}),
+    "mlstm_chunk_bwd": ("mlstm_bwd_build", r"mlstm_bwd_\w+_kernel",
+                        {r"mlstm_bwd_tc_(state|rows|dstate|grads)": TENSOR_CORE}),
     "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", {r"rglru_scan_bwd": ("UTMALDG",)}),
     "queue_core": ("queue_build", r"queue_flush_kernel", {}),
 }
@@ -351,7 +355,7 @@ def build_report(libs) -> None:
                                "spill_loads": int(spill.group(2)),
                                "stack_frame": int(frame.group(1)) if frame else None}
         if cuobjdump.is_file():
-            sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])],
+            sass = subprocess.run([str(cuobjdump), "--dump-sass", str(libs[lib])],
                                   capture_output=True, text=True, check=True,
                                   timeout=300).stdout
             for section in sass.split("Function : ")[1:]:
@@ -2409,7 +2413,8 @@ def check_mlstm_backward(torch, gen, dev):
         share = floor_share(args[0], args[1], args[3], args[4], chunk=chunk)
         record = {"phase": "check", "kernel": "mlstm_chunk_backward",
                   "shape": [B, S, H, dqk, dv], "chunk": chunk_size(S, chunk),
-                  "dtype": str(dtype), "floor_inputs": floor, "floor_share": share,
+                  "dtype": str(dtype), "path": ops.backward_path(dtype, dqk, dv),
+                  "floor_inputs": floor, "floor_share": share,
                   "max_abs_err": err, **report, "second_call_bit_equal": same}
         emit(record)
         if floor is not None:
@@ -2432,7 +2437,8 @@ def check_mlstm_backward(torch, gen, dev):
         sides[side] = {"max_abs_err": err, **report, "ok": ok}
     torch.cuda.synchronize()
     record = {"phase": "check", "kernel": "mlstm_chunk_backward", "shape": [B, S, H, dqk, dv],
-              "chunk": 256, "dtype": str(f32), "against_float64": sides}
+              "chunk": 256, "dtype": str(f32), "path": ops.backward_path(f32, dqk, dv),
+              "against_float64": sides}
     emit(record)
     if not (sides["kernel"]["ok"] and sides["plain"]["ok"]):
         raise AssertionError(f"mlstm_chunk backward, float32 against float64: {record}")
@@ -2449,7 +2455,11 @@ def measure_mlstm_backward(torch, gen, dev, peak, B=1, S=2048, H=4, dqk=512, dv=
     (``cost.kernels.mlstm_backward(as_built=False)``: no state recomputed,
     the scores once) at the rate of the inputs' type, bf16, as the forward
     row's. No library yardstick: no single PyTorch call computes this
-    backward."""
+    backward. ``passes``: each of its kernels' device ms and launches a
+    call, from ``torch.profiler`` over 5 calls; ``launches_a_call``, their
+    sum; ``workspace_bytes``, the allocator's growth over one call less the
+    five gradients (each block rounded up to the allocator's 512 bytes)."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.cost import kernels as work
     from repro_torch.kernels.mlstm_chunk import ops
     args = _mlstm_inputs(torch, gen, dev, B, S, H, dqk, dv, torch.bfloat16)
@@ -2460,10 +2470,28 @@ def measure_mlstm_backward(torch, gen, dev, peak, B=1, S=2048, H=4, dqk=512, dv=
     turns = time_interleaved(torch, {"kernel": ops.mlstm_chunk_backward}, inputs)["kernel"]
     plain = time_ms(torch, ops.mlstm_chunk_backward_reference, inputs, iters=2, warmup=1)
     flops, nbytes = work.mlstm_backward(B, S, H, dqk, dv, 256, as_built=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            ops.mlstm_chunk_backward(*inputs[0])
+        torch.cuda.synchronize()
+    passes = [{"name": re.search(r"mlstm_bwd_\w+_kernel", p["name"]).group(0),
+               "ms": p["ms_per_step"], "calls_per_step": p["calls_per_step"]}
+              for p in _device_breakdown(torch, prof, time.perf_counter() - t0, 5)["port_kernels"]]
+    block = lambda n: -(-n // 512) * 512  # noqa: E731
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = ops.mlstm_chunk_backward(*inputs[0])
+    torch.cuda.synchronize()
+    workspace = (torch.cuda.max_memory_allocated() - base
+                 - sum(block(g.untyped_storage().nbytes()) for g in grads))
+    del grads
     return {**measured(turns["median"], plain, None, flops, nbytes, peak[0], peak[1]),
             "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"],
-            "workspace_bytes": 4 * ops.workspace_floats(B, S, H, dqk, dv, 256),
-            "launches_a_call": 6}
+            "passes": passes, "path": ops.backward_path(torch.bfloat16, dqk, dv),
+            "workspace_bytes": workspace,
+            "launches_a_call": sum(p["calls_per_step"] for p in passes)}
 
 
 def _metrics(m: dict) -> dict:

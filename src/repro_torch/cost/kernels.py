@@ -69,26 +69,44 @@ def mlstm(B: int, S: int, H: int, dqk: int, dv: int, chunk: int, itemsize: int =
 
 
 def mlstm_backward(B: int, S: int, H: int, dqk: int, dv: int, chunk: int,
-                   itemsize: int = 2, as_built: bool = True) -> Work:
+                   itemsize: int = 2, as_built: bool = True,
+                   path: str = "tensor_cores") -> Work:
     """The backward of the chunkwise mLSTM at chunk ``chunk`` (a divisor of
-    S). As built (``csrc/mlstm_chunk_bwd.cu``): per chunk five [c, dqk] x
-    [dqk, dv]-sized products (the state recomputed, its gradient walked
-    back, q C^T in dq, v dC^T in dk, k dC in dv), over the causal pairs the
-    scores twice, dP = dh v^T and dS k, dS^T q, W^T dh, and the vector terms
-    (the n state and its gradient, q . n, dh . h). ``as_built=False`` counts
-    the backward's own work, the bound's: the chunk-start states taken as
-    given (no recompute) and the scores once. q, k, v, h, dh and the float32
-    gates in, dq, dk, dv and the float32 di, df out; the float32 scratch
-    between the kernel's launches is not counted."""
+    S), as built in ``csrc/mlstm_chunk_bwd.cu`` on ``path``, the one that
+    ``ops.backward_path`` picks for the dtype and the widths:
+
+    * ``"tensor_cores"``: over
+      the T - 1 chunk boundaries, [c, dqk] x [c, dv]-sized products for the
+      chunk-start states, their gradient walked back, dh C^T in dq, v G^T in
+      dk and k G in dv, each twice (its float32 operand split into bf16 hi
+      and lo); over the causal pairs of every chunk the scores once, dP = dh
+      v^T, and twice (dS, W' split) dS k, dS^T q and W'^T dh; the vector
+      terms (n and dn, q . n, dh . h, the row dots with q and k, <C_t, G_t>);
+    * ``"cuda_cores"``: per chunk five such products
+      (the states recomputed for every chunk, the gradient walked back, q
+      C^T, v dC^T, k dC), over the causal pairs the scores twice, dP, dS k,
+      dS^T q, W^T dh, and the vector terms.
+
+    ``as_built=False`` counts the backward's own work, the bound's: the
+    chunk-start states taken as given (no recompute) and the scores once.
+    q, k, v, h, dh and the float32 gates in, dq, dk, dv and the float32 di,
+    df out; the scratch between the kernel's launches is not counted."""
     c = chunk
+    T = S // c
     pairs = c * (c + 1) // 2
-    if as_built:
-        per_chunk = 10 * c * dqk * dv + pairs * (8 * dqk + 4 * dv) + 6 * c * dqk + 2 * c * dv
-    else:
-        per_chunk = 8 * c * dqk * dv + pairs * (6 * dqk + 4 * dv) + 4 * c * dqk + 2 * c * dv
-    flops = B * H * (S // c) * per_chunk
     nbytes = itemsize * B * S * H * (4 * dqk + 4 * dv) + 4 * 4 * B * S * H
-    return flops, nbytes
+    if not as_built:
+        per_chunk = 8 * c * dqk * dv + pairs * (6 * dqk + 4 * dv) + 4 * c * dqk + 2 * c * dv
+        return B * H * T * per_chunk, nbytes
+    if path not in ("tensor_cores", "cuda_cores"):
+        raise ValueError(f"path is 'tensor_cores' or 'cuda_cores', got {path!r}")
+    if path == "tensor_cores":
+        per_head = ((T - 1) * (20 * c * dqk * dv + 10 * c * dqk)
+                    + T * (pairs * (10 * dqk + 6 * dv) + 2 * c * dv)
+                    + max(T - 2, 0) * 2 * dqk * dv)
+        return B * H * per_head, nbytes
+    per_chunk = 10 * c * dqk * dv + pairs * (8 * dqk + 4 * dv) + 6 * c * dqk + 2 * c * dv
+    return B * H * T * per_chunk, nbytes
 
 
 def rglru_forward(B: int, S: int, W: int, itemsize: int = 4, out_itemsize: int = 4) -> Work:

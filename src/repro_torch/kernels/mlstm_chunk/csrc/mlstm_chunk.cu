@@ -59,6 +59,7 @@
 // plain version fed the same bf16 inputs and the f32 state to 1e-3.
 
 #include "common/hopper.cuh"   // mbarriers, TMA, wgmma (shared with flash_attention.cu)
+#include "mlstm_chunk/csrc/mlstm_gates.cuh"   // chunk_gates, next_m (shared with the backward)
 namespace {
 
 constexpr int THREADS = 256;
@@ -415,62 +416,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");   // the consumer warpgroup only
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// One warp: the f32 gates of chunk rows [s0, s0 + c), c <= 256, lane owning
-// rows 8 lane .. 8 lane + 7: i into s_i and the in-chunk cumulative sum b of
-// f into s_b (0 past c). Returns b's total, btot, in every lane.
-__device__ float chunk_gates(const float* ib, const float* fb, int64_t i_ss, int64_t f_ss,
-                             int64_t s0, int c, float* s_b, float* s_i, int lane) {
-  float pre[8], run = 0.f;
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int r = 8 * lane + u;
-    const bool in = r < c;
-    run += in ? fb[(s0 + r) * f_ss] : 0.f;
-    pre[u] = run;
-    s_i[r] = in ? ib[(s0 + r) * i_ss] : 0.f;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  const float before = __shfl_up_sync(0xffffffffu, incl, 1);
-  const float excl = lane == 0 ? 0.f : before;
-#pragma unroll
-  for (int u = 0; u < 8; ++u) s_b[8 * lane + u] = 8 * lane + u < c ? excl + pre[u] : 0.f;
-  return __shfl_sync(0xffffffffu, incl, 31);
-}
-
-// One warp: the stabiliser after the chunk whose gates chunk_gates just
-// stored, from m_prev (the chunk's max of btot - b_l + i_l against btot + m_prev).
-__device__ float next_m(const float* s_b, const float* s_i, int c, float btot, float m_prev,
-                        int lane) {
-  float g = NEG_INF;
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int r = 8 * lane + u;
-    if (r < c) g = fmaxf(g, btot - s_b[r] + s_i[r]);
-  }
-  return fmaxf(btot + m_prev, warp_max(g));
-}
-
-__device__ __forceinline__ void bf16x8_to_float(uint4 raw, float* x) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 // State pass. Grid (ceil(dv / 256), ceil(dqk / 64), B * H): a block carries the
 // [64 dqk rows x 256 dv columns] tile of C as a wgmma accumulator (m64n256,
 // float32, 128 registers a thread) through the chunks in order. Per chunk:
@@ -783,28 +728,15 @@ mlstm_out_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_prev = next_m(s_b, s_i, c, btot, m_prev, lane);
     }
     chunk_gates(ib, fb, i_ss, f_ss, s0, c, s_b, s_i, lane);
-    float pm[8], run = NEG_INF;
+    float zs[8];
+    chunk_stabilisers(s_b, s_i, c, m_prev, lane, zs);
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int r = 8 * lane + u;
-      const float a = r < c ? s_i[r] - s_b[r] : NEG_INF;
-      s_a[r] = r < c ? a : 0.f;
-      run = fmaxf(run, a);
-      pm[u] = run;
-    }
-    float incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl = fmaxf(incl, y);
-    }
-    const float before = __shfl_up_sync(0xffffffffu, incl, 1);
-    const float excl = lane == 0 ? NEG_INF : before;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int rr = 8 * lane + u - j0;
+      s_a[r] = r < c ? s_i[r] - s_b[r] : 0.f;
+      const int rr = r - j0;
       if (rr >= 0 && rr < TC_BM) {
-        const float z = fmaxf(fmaxf(excl, pm[u]), m_prev);   // m_j - b_j
+        const float z = zs[u];                                // m_j - b_j
         s_z[rr] = z;
         s_decq[rr] = expf(m_prev - z);
         s_floor[rr] = expf(-(s_b[rr + j0] + z));

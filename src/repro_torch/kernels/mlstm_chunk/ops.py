@@ -21,14 +21,16 @@ Training: where autograd records (grad mode on and an input that requires
 grad), ``mlstm_chunk`` runs through ``MLSTMChunkFunction``. Its forward is
 the same kernels (or plain version) and saves q, k, v, the gates and h; its
 backward calls ``mlstm_chunk_backward``: on the card
-``csrc/mlstm_chunk_bwd.cu`` (six launches on CUDA cores, float32 or
-bfloat16, no atomics: a second call gives the same bits), on the CPU the
-explicit formulas of ``ref.mlstm_chunk_backward_reference``, so the CPU
-tests check what the kernel computes. Both hold the stabilisers constant,
-which is the exact gradient (``ref.py``). A final state returned under
-autograd is detached: the model caches it only in prefill, which takes no
-gradient. The backward's float32 scratch (``workspace_floats``) is allocated
-here.
+``csrc/mlstm_chunk_bwd.cu`` (no atomics: a second call gives the same bits),
+on the CPU the explicit formulas of ``ref.mlstm_chunk_backward_reference``,
+so the CPU tests check what the kernel computes. Both hold the stabilisers
+constant, which is the exact gradient (``ref.py``). ``backward_path`` picks
+the kernel's path from the dtype and the widths alone: bfloat16 with 64 <=
+dqk <= 512 and dv >= 64 takes five tensor-core launches (``wgmma``, TMA;
+dqk and dv multiples of 8, else ``ValueError``), everything else six
+launches on CUDA cores. A final state returned under autograd is detached:
+the model caches it only in prefill, which takes no gradient. The
+backward's scratch (``workspace_floats``, float32 slots) is allocated here.
 
 ``mlstm_chunk.launches`` counts calls that launched the forward kernels (one
 for the bf16 pair) and ``mlstm_chunk_backward.launches`` backward calls that
@@ -59,7 +61,8 @@ MAX_DQK = 512
 BLOCK = 64           # rows of a TMA box: a query tile, a dqk tile, a slab of a chunk
 MIN_TC_DIM = 64      # the bf16 kernels' least dqk and dv: one box wide
 PLANS = 4            # q, k, v and the interior-chunk state
-TILE = 64            # the backward's output tiles: rows, dqk and dv columns
+TILE = 64            # the CUDA-core backward's output tiles: rows, dqk and dv columns
+TC_N = 256           # the tensor-core backward's dqk and dv columns a tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,7 +85,11 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.mlstm_chunk_bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
                                     + [ctypes.c_int64] + [ctypes.c_int] * 6
                                     + [ctypes.c_void_p])
-    lib.mlstm_chunk_bwd.restype = ctypes.c_int
+    lib.mlstm_chunk_bwd_bf16.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int64]
+                                         + [ctypes.c_int] * 6
+                                         + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+    for fn in (lib.mlstm_chunk_bwd, lib.mlstm_chunk_bwd_bf16):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -195,13 +202,42 @@ def _launch(q, k, v, i_log, f_log, chunk: int):
     return h, (C, n, m)
 
 
-def workspace_floats(B: int, S: int, H: int, dqk: int, dv: int, c: int) -> int:
-    """The backward kernels' float32 scratch (``csrc/mlstm_chunk_bwd.cu``,
-    ``workspace_floats``): per position the gate terms, N, dden, dlogD's row
-    sums and the partial column and row sums; per chunk the decay and the
-    partial dots; the chunk-start states and their gradients (C [dqk, dv]
-    and n [dqk] each); dS and W [c, c] of every chunk."""
+def backward_path(dtype: torch.dtype, dqk: int, dv: int) -> str:
+    """The backward kernel's path, from the dtype and the widths alone:
+    ``"tensor_cores"`` for bfloat16 with ``MIN_TC_DIM <= dqk <= MAX_DQK`` and
+    ``dv >= MIN_TC_DIM``, else ``"cuda_cores"`` (float32, whose ``wgmma``
+    would be TF32, and rows narrower than one 64-column TMA box)."""
+    if dtype == torch.bfloat16 and MIN_TC_DIM <= dqk <= MAX_DQK and dv >= MIN_TC_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _align32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def workspace_floats(B: int, S: int, H: int, dqk: int, dv: int, c: int,
+                     dtype: torch.dtype) -> int:
+    """The backward kernels' scratch in float32 slots (``csrc/mlstm_chunk_bwd.cu``:
+    ``tc_workspace_floats`` and ``workspace_floats``), by ``backward_path``.
+    Tensor cores: per position the gate terms, N, dden, dlogD's row sums and
+    the partial column and row sums; per chunk the decay and the partial
+    dots; n_t and dn_t [dqk] and, as bf16 hi and lo (one slot each), C_t and
+    G_t [dqk, dv] of the T - 1 interior chunk boundaries and dS, W' [cp, cp]
+    of every chunk (cp: c rounded up to 64); each part rounded up to 32
+    slots.
+    CUDA cores: per position the gate terms, N, dden, dlogD's row sums and
+    the partial column and row sums; per chunk the decay and the partial
+    dots; the chunk-start states and their gradients (C [dqk, dv] and n
+    [dqk] each) and dS, W [c, c] of every chunk, all float32."""
     BH, T = B * H, S // c
+    if backward_path(dtype, dqk, dv) == "tensor_cores":
+        R = -(-c // BLOCK)
+        DH, EH, DT, cp = -(-dqk // TC_N), -(-dv // TC_N), -(-dqk // BLOCK), BLOCK * R
+        a = _align32
+        return (8 * a(BH * S) + a(BH * T) + a(R * BH * S) + 2 * a(DH * BH * S)
+                + a(DT * EH * BH * T) + a(DT * BH * T) + 2 * a(BH * (T - 1) * dqk)
+                + 2 * a(BH * (T - 1) * dqk * dv) + 2 * a(BH * T * cp * cp))
     R, DT, ET = -(-c // TILE), -(-dqk // TILE), -(-dv // TILE)
     return (BH * S * (8 + R + 2 * DT) + BH * T * (1 + DT * ET + DT)
             + 2 * BH * T * dqk * (dv + 1) + 2 * BH * S * c)
@@ -241,22 +277,34 @@ def _launch_backward(q, k, v, i_log, f_log, h, dh, chunk: int):
     if B * H * (S // c) > 65535:
         raise ValueError(f"B*H*chunks = {B * H * (S // c)} exceeds the backward kernel's "
                          "grid limit 65535")
+    path = backward_path(q.dtype, dqk, dv)
+    tensor_cores = path == "tensor_cores"
+    if tensor_cores and (dqk % 8 or dv % 8):
+        raise ValueError(f"the bf16 mlstm_chunk backward kernels take dqk and dv that are "
+                         f"multiples of 8 (16-byte rows for TMA), got {dqk}, {dv}")
     # the kernels take contiguous [B, S, H, d] rows (a copy only where
     # autograd hands over another layout)
     q, k, v, i_log, f_log, h, dh = (t.contiguous() for t in (q, k, v, i_log, f_log, h, dh))
     dq, dk, dv_, di, df = (torch.empty_like(t) for t in (q, k, v, i_log, f_log))
-    floats = workspace_floats(B, S, H, dqk, dv, c)
+    floats = workspace_floats(B, S, H, dqk, dv, c, q.dtype)
     ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     if analysis.counting():
         analysis.report_kernel("mlstm_chunk_backward", *work.mlstm_backward(
-            B, S, H, dqk, dv, c, q.element_size()))
+            B, S, H, dqk, dv, c, q.element_size(), path=path))
     if q.device.type == "meta":
         return dq, dk, dv_, di, df
     lib = _bwd_lib()
     tensors = (q, k, v, i_log, f_log, h, dh, dq, dk, dv_, di, df, ws)
+    ptrs = tuple(t.data_ptr() for t in tensors)
     with torch.cuda.device(q.device):
-        err = lib.mlstm_chunk_bwd(_DTYPES[q.dtype], *(t.data_ptr() for t in tensors), floats,
-                                  B, S, H, dqk, dv, c, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tensor_cores:
+            plans = tuple(tensor_map_plan(t, BLOCK, whole_boxes=False) for t in (q, k, v, dh))
+            err = lib.mlstm_chunk_bwd_bf16(*ptrs, floats, B, S, H, dqk, dv, c,
+                                           _packed(plans, ()), stream)
+        else:
+            err = lib.mlstm_chunk_bwd(_DTYPES[q.dtype], *ptrs, floats, B, S, H, dqk, dv, c,
+                                      stream)
     _build.check(lib, err, "mlstm_chunk_backward")
     mlstm_chunk_backward.launches += 1
     return dq, dk, dv_, di, df

@@ -210,9 +210,10 @@ def test_mlstm_on_meta_under_autograd_counts_forward_and_backward(dtype):
     es = q.element_size()
     assert _kernels(c) == {
         "mlstm_chunk": (1, *work.mlstm(B, S, H, dqk, dv, chunk, es)),
-        "mlstm_chunk_backward": (1, *work.mlstm_backward(B, S, H, dqk, dv, chunk, es))}
+        "mlstm_chunk_backward": (1, *work.mlstm_backward(
+            B, S, H, dqk, dv, chunk, es, path=ops.backward_path(dtype, dqk, dv)))}
     assert "plain_versions" not in c.totals()
-    assert c.totals()["peak_bytes"] >= 4 * ops.workspace_floats(B, S, H, dqk, dv, chunk)
+    assert c.totals()["peak_bytes"] >= 4 * ops.workspace_floats(B, S, H, dqk, dv, chunk, dtype)
     assert (ops.mlstm_chunk.launches, ops.mlstm_chunk_backward.launches) == before
 
 
@@ -252,10 +253,18 @@ def test_the_formulas_are_chip_smokes_bounds():
     assert work.rglru_backward(1, 3072, 2560) == (3 * 3072 * 2560,
                                                   4 * (5 * 3072 * 2560 + 2 * 2560))
     c, dqk, dv = 256, 512, 1024                        # xlstm-1.3b's training layer
-    per_chunk = 10 * c * dqk * dv + c * (c + 1) // 2 * (8 * dqk + 4 * dv) + 6 * c * dqk \
-        + 2 * c * dv
+    pairs = c * (c + 1) // 2
+    # bf16 on the tensor cores: 7 chunk boundaries, each [c, dqk] x [c, dv]
+    # product (two walks, three inter terms) twice for its hi and lo operand;
+    # the intra products with dS or W' twice, the scores and dP once
+    per_head = 7 * (20 * c * dqk * dv + 10 * c * dqk) + 8 * (pairs * (10 * dqk + 6 * dv)
+                                                             + 2 * c * dv) + 6 * 2 * dqk * dv
     assert work.mlstm_backward(1, 2048, 4, dqk, dv, c) == (
-        4 * 8 * per_chunk, 2 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)
+        4 * per_head, 2 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)
+    # float32 on CUDA cores: the states recomputed, the scores twice
+    per_chunk = 10 * c * dqk * dv + pairs * (8 * dqk + 4 * dv) + 6 * c * dqk + 2 * c * dv
+    assert work.mlstm_backward(1, 2048, 4, dqk, dv, c, 4, path="cuda_cores") == (
+        4 * 8 * per_chunk, 4 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)
     own = 8 * c * dqk * dv + c * (c + 1) // 2 * (6 * dqk + 4 * dv) + 4 * c * dqk + 2 * c * dv
     assert work.mlstm_backward(1, 2048, 4, dqk, dv, c, as_built=False) == (
         4 * 8 * own, 2 * 2048 * 4 * (4 * dqk + 4 * dv) + 16 * 2048 * 4)

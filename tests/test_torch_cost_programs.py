@@ -71,6 +71,7 @@ def _attention_terms(cfg, B, S, passes):
 
 def _mlstm_terms(cfg, B, S):
     """(JAX's, the port's) mLSTM FLOPs of one forward."""
+    from repro_torch.kernels.mlstm_chunk import ops
     from repro_torch.kernels.mlstm_chunk.ref import chunk_size
     from repro_torch.models.xlstm import mlstm_dims
     _, H, dqk, dv = mlstm_dims(cfg)
@@ -88,6 +89,7 @@ def _mlstm_train_terms(cfg, jcfg, B, S):
     """(JAX's, the port's) mLSTM FLOPs of one train step without remat:
     forward and backward of every mLSTM layer."""
     from repro.models.xlstm import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk import ops
     from repro_torch.kernels.mlstm_chunk.ref import chunk_size
     from repro_torch.models.xlstm import mlstm_dims
     _, H, dqk, dv = mlstm_dims(cfg)
@@ -103,7 +105,9 @@ def _mlstm_train_terms(cfg, jcfg, B, S):
         return vjp(h)
 
     jax_f = n * _jax_flops(fwd_bwd, *args)
-    port_f = n * (work.mlstm(B, S, H, dqk, dv, c)[0] + work.mlstm_backward(B, S, H, dqk, dv, c)[0])
+    path = ops.backward_path(getattr(torch, dt.name), dqk, dv)
+    port_f = n * (work.mlstm(B, S, H, dqk, dv, c)[0]
+                  + work.mlstm_backward(B, S, H, dqk, dv, c, path=path)[0])
     return jax_f, port_f
 
 

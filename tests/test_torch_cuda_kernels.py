@@ -1192,12 +1192,14 @@ def test_rglru_backward_plan_is_resident_and_rejects_tma_where_it_cannot(cuda):
         ops._launch_backward(*inputs, tma=True)
 
 
-MLSTM_BWD_CASES = [  # (B, S, H, dqk, dv, chunk, dtype)
-    (1, 2048, 4, 512, 1024, 256, torch.bfloat16),   # xlstm-1.3b's training layer
-    (4, 512, 4, 512, 1024, 256, torch.float32),
-    *((1, 300, 2, 64, 96, 256, t) for t in (torch.float32, torch.bfloat16)),  # chunk 150
-    *((2, 192, 2, 128, 256, 256, t) for t in (torch.float32, torch.bfloat16)),  # one chunk
-    *((2, 128, 4, 16, 32, 256, t) for t in (torch.float32, torch.bfloat16)),  # reduced
+MLSTM_BWD_CASES = [  # (B, S, H, dqk, dv, chunk, dtype, floor)
+    (1, 2048, 4, 512, 1024, 256, torch.bfloat16, None),   # xlstm-1.3b's training layer
+    (4, 512, 4, 512, 1024, 256, torch.float32, None),
+    *((1, 300, 2, 64, 96, 256, t, None) for t in (torch.float32, torch.bfloat16)),  # chunk 150
+    *((2, 192, 2, 128, 256, 256, t, None) for t in (torch.float32, torch.bfloat16)),  # one chunk
+    *((2, 128, 4, 16, 32, 256, t, None) for t in (torch.float32, torch.bfloat16)),  # reduced
+    (1, 768, 2, 512, 160, 256, torch.bfloat16, None),     # three chunks, dv ragged at dqk 512
+    (2, 512, 4, 128, 256, 256, torch.bfloat16, (0.3, -1.0)),  # chip_smoke's floor-winning draw
 ]
 
 
@@ -1205,19 +1207,44 @@ def _mlstm_bwd_tol(dtype):
     return {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
 
 
-@pytest.mark.parametrize("B,S,H,dqk,dv,chunk,dtype", MLSTM_BWD_CASES)
-def test_mlstm_backward_kernel_matches_plain(cuda, B, S, H, dqk, dv, chunk, dtype):
+def _mlstm_floor_inputs(B, S, H, dqk, dv, dtype, q_scale, i_shift, seed=0):
+    """Drawn as ``tests/test_torch_mlstm_backward.py`` draws them (numpy),
+    q scaled and the input gate shifted so that the denominator's floor
+    exp(-m_j) wins at part of the positions; gates float32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, dqk)) * q_scale
+    k = rng.standard_normal((B, S, H, dqk)) / np.sqrt(dqk)
+    v = rng.standard_normal((B, S, H, dv))
+    il = rng.standard_normal((B, S, H)) + i_shift
+    x = rng.standard_normal((B, S, H)).astype(np.float32) + 2.0
+    fl = -np.logaddexp(0.0, -x)
+    dh = rng.standard_normal((B, S, H, dv))
+    card = lambda a, t: torch.from_numpy(a.astype(np.float32)).cuda().to(t)  # noqa: E731
+    return (card(q, dtype), card(k, dtype), card(v, dtype), card(il, torch.float32),
+            card(fl, torch.float32)), card(dh, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,dqk,dv,chunk,dtype,floor", MLSTM_BWD_CASES)
+def test_mlstm_backward_kernel_matches_plain(cuda, B, S, H, dqk, dv, chunk, dtype, floor):
     """dq, dk, dv, di, df of the backward kernels against the plain formulas
     on the same inputs, each under ``_assert_grads_close``; a second call
     gives the same bits (no atomics). float32 is held here up to S 512: at
     S 2048 (max/rms of dq ~115) both sides are float32 approximations that
     ``grad_tol`` cannot tell apart, so there each is held against float64
     (``test_mlstm_backward_float32_at_s_2048_against_float64``). The
-    training layer runs bf16, held here at S 2048."""
+    training layer runs bf16, held here at S 2048. ``floor`` (q_scale,
+    i_shift) draws chip_smoke's floor-winning inputs, where the floor
+    exp(-m_j) wins at part of the positions (dden is 0 there)."""
     from repro_torch.kernels.mlstm_chunk import ops
-    q, k, v, i_log, f_log = _mlstm_inputs(cuda, B, S, H, dqk, dv, dtype)
+    from repro_torch.kernels.mlstm_chunk.ref import floor_share
+    if floor is None:
+        q, k, v, i_log, f_log = _mlstm_inputs(cuda, B, S, H, dqk, dv, dtype)
+        dh = _randn(cuda, B, S, H, dv, dtype=dtype)
+    else:
+        (q, k, v, i_log, f_log), dh = _mlstm_floor_inputs(B, S, H, dqk, dv, dtype, *floor)
+        assert 0.0 < floor_share(q, k, i_log, f_log, chunk=chunk) < 1.0
     h = ops.mlstm_chunk_reference(q, k, v, i_log, f_log, chunk=chunk)
-    dh = _randn(cuda, B, S, H, dv, dtype=dtype)
     before = ops.mlstm_chunk_backward.launches
     got = ops.mlstm_chunk_backward(q, k, v, i_log, f_log, h, dh, chunk=chunk)
     again = ops.mlstm_chunk_backward(q, k, v, i_log, f_log, h, dh, chunk=chunk)

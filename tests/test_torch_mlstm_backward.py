@@ -142,3 +142,64 @@ def test_mlstm_chunk_backward_checks_its_shapes():
     h = mlstm_chunk_reference(*ts, chunk=16)
     with pytest.raises(ValueError, match="h and dh"):
         ops.mlstm_chunk_backward(*ts, h, torch.from_numpy(dh)[:, :16], chunk=16)
+
+
+# (B, S, H, dqk, dv, chunk, dtype) and the backward's scratch in float32
+# slots, counted by hand from ``csrc/mlstm_chunk_bwd.cu``'s carving
+WORKSPACE_CASES = [
+    # tensor cores: B H 2, T 2, four 64-row tiles (cp 256), one 256-column
+    # tile of dqk and of dv, each part rounded up to 32 slots: 8 x [BH S]
+    # gate terms, N, dden, row sums; [BH T] decays; [4, BH, S] column sums;
+    # [1, BH, S] x 2 row dots; [1 x 1, BH, T] and [1, BH, T] dots; [BH (T -
+    # 1) dqk] x 2 n_t, dn_t; C_t, G_t hi and lo, [2, BH (T - 1), dqk, dv]
+    # bf16 each; dS, W' hi and lo, [2, BH T, cp, cp] bf16 each
+    ((1, 512, 2, 64, 128, 256, torch.bfloat16),
+     8 * 1024 + 32 + 4096 + 2 * 1024 + 32 + 32 + 2 * 128 + 2 * 16384 + 2 * 262144),
+    # CUDA cores: [BH S] x (8 + 4 column sums + 2 x 1 row dots), [BH T] x (1 +
+    # 1 x 2 + 1), C and G with n (float32 [BH T dqk (dv + 1)] each), dS and
+    # W (float32 [BH S c] each)
+    ((1, 512, 2, 64, 128, 256, torch.float32),
+     1024 * 14 + 4 * 4 + 2 * 4 * 64 * 129 + 2 * 1024 * 256),
+    ((1, 512, 2, 48, 128, 256, torch.bfloat16),      # bf16 below 64 wide
+     1024 * 14 + 4 * 4 + 2 * 4 * 48 * 129 + 2 * 1024 * 256),
+]
+
+
+@pytest.mark.parametrize("shape,floats", WORKSPACE_CASES)
+def test_backward_workspace_follows_the_path(shape, floats):
+    *dims, dtype = shape
+    assert ops.workspace_floats(*dims, dtype) == floats
+
+
+def test_backward_path_is_chosen_on_dtype_and_widths():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ops.backward_path(bf16, 512, 1024) == "tensor_cores"
+    assert ops.backward_path(bf16, 64, 64) == "tensor_cores"
+    assert [ops.backward_path(bf16, *w) for w in ((48, 128), (64, 32), (1024, 64))] == \
+        ["cuda_cores"] * 3
+    assert ops.backward_path(f32, 512, 1024) == "cuda_cores"
+
+
+def test_backward_on_meta_reports_the_tensor_core_work():
+    """bf16 on ``meta`` takes the tensor-core path up to the launch: the
+    scratch of ``workspace_floats`` in the peak, no launch, and the work
+    of the design as built (each [c, dqk] x [c, dv] product of the two walks
+    and the three inter terms twice, over the T - 1 chunk boundaries; over
+    the causal pairs the scores and dP once, the three products with dS or
+    W' twice; the vector terms), written out here."""
+    from repro_torch.cost.analysis import CostCounter
+    B, S, H, dqk, dv, c = 1, 512, 2, 64, 128, 256
+    T, pairs = S // c, c * (c + 1) // 2
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")  # noqa: E731
+    ins = (meta(B, S, H, dqk), meta(B, S, H, dqk), meta(B, S, H, dv),
+           meta(B, S, H, dtype=torch.float32), meta(B, S, H, dtype=torch.float32))
+    before = ops.mlstm_chunk_backward.launches
+    with CostCounter() as counter:
+        grads = ops.mlstm_chunk_backward(*ins, meta(B, S, H, dv), meta(B, S, H, dv), chunk=c)
+    assert [(g.shape, g.dtype) for g in grads] == [(t.shape, t.dtype) for t in ins]
+    per_head = ((T - 1) * (20 * c * dqk * dv + 10 * c * dqk)
+                + T * (pairs * (10 * dqk + 6 * dv) + 2 * c * dv))
+    detail = counter.totals()["kernel_detail"]["mlstm_chunk_backward"]
+    assert (detail["launches"], detail["flops"]) == (1, B * H * per_head)
+    assert counter.totals()["peak_bytes"] >= 4 * WORKSPACE_CASES[0][1]
+    assert ops.mlstm_chunk_backward.launches == before
