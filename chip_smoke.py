@@ -7,8 +7,9 @@ Phases, each of which fails the run on any error:
 
 1. card and build: ``nvidia-smi`` name and power limit; every CUDA kernel is
    built from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``; for each
-   flash, flash backward, decode, mLSTM (forward and backward) and scan
-   (forward and backward) instance its registers and spills
+   flash, flash backward, decode, mLSTM (forward and backward), scan
+   (forward and backward) and sLSTM (forward, backward and the barrier
+   probe) instance its registers and spills
    (``-Xptxas -v``; a queue register instance may have no stack frame)
    and, where ``cuobjdump`` exists, its HGMMA, UTMALDG and UBLKCP counts (an
    instance that spills, a tensor-core instance -- bf16 flash forward and
@@ -26,12 +27,20 @@ Phases, each of which fails the run on any error:
    state rel 1e-3, float32 rel 1e-4, ragged dv tiles and chunk 73; RG-LRU
    scan: float32 2e-5, bf16 3e-2, also S shorter than a chunk, S = 1, S not
    a multiple of the cluster, several rounds, ragged channel tiles, a chunk
-   with a = 0, strided inputs staged by bulk copies and by plain loads),
+   with a = 0, strided inputs staged by bulk copies and by plain loads;
+   the sLSTM recurrence (``slstm_scan``): h and the final (h, c, n, m) at
+   atol 1e-5 (a state tensor at 1e-5 of its largest value) at xlstm-1.3b's
+   serving prefill [4, 512, 4, 512] and training layer [1, 2048, 4, 512]
+   (there also against a float64 run of the plain version: the kernel's
+   error at most 3x the plain float32's), a decode step (S = 1) from a
+   non-zero state, the launchers' reduced dh 16 and the small xLSTM
+   model's widths, a second call bit-equal),
    and timed beside its plain version, one PyTorch call computing the same
    function where there is one (``F.scaled_dot_product_attention``; none
-   for the mLSTM or the scan: a yardstick the port never calls) and its
-   bound (bytes over HBM rate, operations over the peak rate of their
-   type). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
+   for the mLSTM, the scan or the sLSTM: a yardstick the port never calls)
+   and its bound (bytes over HBM rate, operations over the peak rate of
+   their type; the sLSTM also its chain bound, S steps x its head
+   barriers, one barrier timed on its grid by ``slstm_barrier_kernel``). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
    time, no host gaps) in 7 turns of alternating order: the median, with
    the min and max and the time of calls made one by one from the host
    (``eager_ms``). Flash and decode are timed also at qwen3-moe-30b-a3b's
@@ -39,7 +48,8 @@ Phases, each of which fails the run on any error:
    gemma3's window (SDPA with the same boolean mask) and decode on its
    wrapped ring, and both at musicgen-large's (``musicgen``: 32 heads over
    32 kv heads at hd 64). The scan is timed also at recurrentgemma-2b's training
-   shape [1, 3072, 2560] (``training_shape``). The decode row names its
+   shape [1, 3072, 2560] (``training_shape``), the sLSTM also at its
+   training layer (``training_shape``). The decode row names its
    split plan and grid size; the decode kernel is also built with its phase
    clocks and each phase's share of a block's cycles printed at both
    serving shapes (``decode_phases``);
@@ -64,9 +74,11 @@ Phases, each of which fails the run on any error:
    bf16 frames, 31 decode steps on ``decode_inputs``; every token of the
    [4, 32, 4] output in [0, 2048); peak memory, prefill ms and decode ms a
    step of a counted and a second round, and its profile). Before each run
-   every launch counter is zeroed, and the plain attention, mLSTM and scan
-   versions are made to raise until it ends, so each run proves that every
-   attention, mLSTM or RG-LRU prefill call went through the kernels;
+   every launch counter is zeroed, and the plain attention, mLSTM, scan and
+   sLSTM versions are made to raise until it ends, so each run proves that
+   every attention, mLSTM, RG-LRU or sLSTM call went through the kernels
+   (xlstm-1.3b: one ``slstm_scan`` launch a layer in each prefill and each
+   decode step);
    ``orchestrator``: the runtime orchestrator on ``DevicePool()`` (the
    card) over the one-card scenario (a WS spike, ``start()``, zero load
    (the idle card reflows to the trainer, which starts), 2 train steps, a
@@ -118,12 +130,16 @@ Phases, each of which fails the run on any error:
    each chunk of the cells each of its four campaigns executes); and the
    paper's SC-vs-DC sweep, ``repro_torch.examples.consolidation_sim --ws
    timeseries`` (host work; every claim must hold);
-8. training: the three backward kernels (flash attention's: the tensor-core
+8. training: the four backward kernels (flash attention's: the tensor-core
    dQ, dK/dV and partial-sum kernels for bf16 at head dims 64-256, the
    CUDA-core dQ and dK/dV kernels otherwise; the RG-LRU scan's reverse
    recurrence; the chunkwise mLSTM's five tensor-core launches for bf16 at
    dqk and dv of 64 and up, its six CUDA-core launches otherwise, each
-   check record naming its path) against their
+   check record naming its path; the sLSTM's reverse walk, dxz, dxi, dxf,
+   dxo and drec under ``grad_tol`` at [1, 2048, 4, 512], the launchers'
+   reduced shapes, the small model's widths and on inputs where the floor
+   max(n, 1e-6) wins from step 0, its share printed, a second call
+   bit-equal) against their
    plain formulas on the card (the mLSTM's dq, dk, dv, di, df at
    xlstm-1.3b's training layer [1, 2048, 4, 512, 1024] and prefill batch,
    the launchers' reduced shapes, S 300, one chunk, dqk != dv below 64 and
@@ -140,21 +156,24 @@ Phases, each of which fails the run on any error:
    with the same mask, and at musicgen-large's training shape the flash
    forward beside SDPA too; the scan at both recurrentgemma-2b shapes with its
    plan, blocks, blocks an SM, resident clusters and shared bytes; the
-   mLSTM's at [1, 2048, 4, 512, 1024] bf16 beside the plain formulas);
+   mLSTM's at [1, 2048, 4, 512, 1024] bf16 beside the plain formulas; the
+   sLSTM's at [1, 2048, 4, 512] beside the plain formulas and its chain
+   bound, one barrier a step, with drec's product timed on its own);
    ``train_reduced``: the first batch's gradients (leaf by leaf) and
    three steps of the train launcher's reduced
    recurrentgemma-2b, qwen2-7b, qwen3-moe-30b-a3b (its loss with the
    MoE's auxiliary losses), musicgen-large (embeddings in, codebook
-   labels) and xlstm-1.3b (the mLSTM forward and backward kernels, the
-   sLSTM's plain loop; chaotic after its first step, which alone is held)
+   labels) and xlstm-1.3b (the mLSTM and sLSTM forward and backward
+   kernels; chaotic after its first step, which alone is held)
    on the card against the same on the CPU;
    ``train_launcher``: ``python -m repro_torch.launch.train
    --reduced --arch recurrentgemma-2b --devices 1`` for 4 steps, resumed to
    6, against an uninterrupted 6, and ``--devices`` one more than the host's
    cards refused; ``train_full_width``: recurrentgemma-2b (4 steps of 1 ×
    3072 tokens), musicgen-large (4 steps of 1 × 2048 frames) and
-   xlstm-1.3b (4 steps of 1 × 2048 tokens; then one mLSTM and one sLSTM
-   block timed as a step runs them, ``xlstm_train_blocks``) at their
+   xlstm-1.3b (4 steps of 1 × 2048 tokens, then profiled and counted as the
+   other two, and one mLSTM and one sLSTM block timed as a step runs them,
+   ``xlstm_train_blocks``) at their
    published widths through ``ElasticTrainer.train_steps`` on one card
    (world size 1, no process group), remat ``block``, each with its peak
    memory under 80 GB; ``phoenix``: the paper's ``PhoenixOrchestrator`` on
@@ -166,11 +185,11 @@ Phases, each of which fails the run on any error:
    free bytes), 2 steps; the events must equal a stub run's and the four
    losses ``train_full_width``'s bits. Each training run zeroes every launch
    count, makes every plain version (forward and backward) raise, and
-   checks the exact launches of both forward and both backward kernels;
+   checks the exact launches of every forward and backward kernel;
 9. cost (``cost``, after ``phoenix``): the cost tooling held to steps that
-   ran on this card. Four one-card cells -- recurrentgemma-2b training at
-   1 x 3072 and musicgen-large at 1 x 2048 (remat block; one more step of
-   ``train_full_width``'s trainer, untimed), qwen2-7b's served [4, 512]
+   ran on this card. Five one-card cells -- recurrentgemma-2b training at
+   1 x 3072, musicgen-large and xlstm-1.3b at 1 x 2048 (remat block; one
+   more step of ``train_full_width``'s trainer, untimed), qwen2-7b's served [4, 512]
    prefill into 544 slots and one decode step at position 512 (after its
    serve) -- are counted on the card by ``cost.analysis.CostCounter`` and
    dry-run on ``meta`` (``launch.dryrun.cell_record``, a 1 x 1 abstract
@@ -186,8 +205,9 @@ Phases, each of which fails the run on any error:
    and ``quickstart --arch deepseek-7b --steps 5`` on the card, each with
    its exact launches and the plain versions raising.
 Earlier lines are JSON records; the last three are the card line from
-``nvidia-smi``, ``{"kernels": [...]}`` (eight rows: flash, decode, mLSTM,
-scan, queue core, flash backward, scan backward, mLSTM backward; the forward rows'
+``nvidia-smi``, ``{"kernels": [...]}`` (ten rows: flash, decode, mLSTM,
+scan, queue core, flash backward, scan backward, mLSTM backward, sLSTM,
+sLSTM backward; the forward rows'
 ``launches_by_run`` also count the training runs, the orchestrator and
 phoenix phases, musicgen-large's serve, the cost phase's counted steps and
 the examples; flash and decode carry a ``musicgen``
@@ -311,6 +331,7 @@ BUILD_REPORTS = {
     "mlstm_chunk_bwd": ("mlstm_bwd_build", r"mlstm_bwd_\w+_kernel",
                         {r"mlstm_bwd_tc_(state|rows|dstate|grads)": TENSOR_CORE}),
     "rglru_scan": ("scan_build", r"rglru_scan(_bwd)?_kernel", {r"rglru_scan_bwd": ("UTMALDG",)}),
+    "slstm_scan": ("slstm_build", r"slstm_(scan|scan_bwd|barrier)_kernel", {}),
     "queue_core": ("queue_build", r"queue_flush_kernel", {}),
 }
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP")
@@ -783,6 +804,192 @@ def measure_rglru(torch, gen, dev, peak, B=4, S=512, W=2560):
             "scan_plan": list(plan), "blocks": plan.clusters * -(-W // 64) * B}
 
 
+# ------------------------------------------------------------------ sLSTM
+
+def _slstm_inputs(torch, gen, dev, B, S, H, dh, nonzero=False, i_shift=0.0):
+    """Gate inputs N(0, 1), rec N(0, 1/dh) as ``init_slstm_block`` draws it,
+    and a zero state, or a non-zero one (n in [0.5, 2]); ``i_shift`` moves
+    the input gate of the first three steps (and the forget gate up by 4)
+    so that the normaliser's floor max(n, 1e-6) wins there."""
+    x = [torch.randn(B, S, H, dh, generator=gen, device=dev) for _ in range(4)]
+    if i_shift:
+        x[1][:, :3] += i_shift
+        x[2][:, :3] += 4.0
+    rec = torch.randn(4, H, dh, dh, generator=gen, device=dev) / dh ** 0.5
+    if nonzero:
+        state = {"h": torch.randn(B, H, dh, generator=gen, device=dev) * 0.5,
+                 "c": torch.randn(B, H, dh, generator=gen, device=dev),
+                 "n": torch.rand(B, H, dh, generator=gen, device=dev) * 1.5 + 0.5,
+                 "m": torch.randn(B, H, generator=gen, device=dev)}
+    else:
+        state = {k: torch.zeros((B, H, dh) if k != "m" else (B, H), device=dev)
+                 for k in "hcnm"}
+    return x, rec, state
+
+
+def slstm_shapes():
+    """(case, B, S, H, dh, a non-zero initial state) of the sLSTM checks:
+    xlstm-1.3b's serving prefill and training layer, a decode step from a
+    state, the serve and train launchers' reduced dh 16 at their batches,
+    and the small xLSTM model's widths (``small_configs``)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import build_parser as serve_parser
+    from repro_torch.launch.train import build_parser as train_parser
+    full, red = get_config("xlstm-1.3b"), reduced_config(get_config("xlstm-1.3b"))
+    small = next(cfg for cfg, _ in small_configs() if cfg.name == "xlstm-1.3b")
+    H, dh = full.num_heads, full.d_model // full.num_heads
+    rH, rdh = red.num_heads, red.d_model // red.num_heads
+    serve, train = serve_parser().parse_args([]), train_parser().parse_args([])
+    return [("serving_prefill", 4, 512, H, dh, False), ("training", 1, 2048, H, dh, False),
+            ("decode_step", 4, 1, H, dh, True),
+            ("serve_launcher_reduced", serve.max_batch, serve.prompt_len, rH, rdh, False),
+            ("train_launcher_reduced", train.batch, train.seq, rH, rdh, False),
+            ("small_model", 2, 40, small.num_heads, small.d_model // small.num_heads, True)]
+
+
+# h is held at SLSTM_ATOL, each final state tensor at SLSTM_ATOL x max(1,
+# its largest value) (c and n grow with the steps): float32 sums in another
+# order. At S 2048 the kernel's worst error in h against a float64 run of
+# the plain version is held at SLSTM_F64_RATIO x the plain float32's.
+SLSTM_ATOL = 1e-5
+SLSTM_F64_RATIO = 3.0
+
+
+def check_slstm(torch, gen, dev):
+    """The forward kernel against ``slstm_scan_reference`` on the card at
+    ``slstm_shapes``: h and the final (h, c, n, m), and a second call's
+    bits. At the training layer also both against float64."""
+    from repro_torch.kernels.slstm_scan import ops
+    errs = {}
+    for case, B, S, H, dh, nonzero in slstm_shapes():
+        x, rec, state = _slstm_inputs(torch, gen, dev, B, S, H, dh, nonzero)
+        h, final = ops.slstm_scan(*x, rec, state)
+        h2, final2 = ops.slstm_scan(*x, rec, state)
+        h_ref, final_ref = ops.slstm_scan_reference(*x, rec, state)
+        torch.cuda.synchronize()
+        err = {"h": max_err(torch, h, h_ref),
+               **{k: max_err(torch, final[k], final_ref[k]) for k in "hcnm"}}
+        tol = {"h": SLSTM_ATOL, **{k: SLSTM_ATOL * max(1.0, final_ref[k].abs().max().item())
+                                   for k in "hcnm"}}
+        same = torch.equal(h, h2) and all(torch.equal(final[k], final2[k]) for k in "hcnm")
+        record = {"phase": "check", "kernel": "slstm_scan", "case": case, "shape": [B, S, H, dh],
+                  "plan": list(ops.card_plan(B, H, dh, dev)), "nonzero_state": nonzero,
+                  "max_abs_err": err["h"], "final_state_err": {k: err[k] for k in "hcnm"},
+                  "tol": tol, "second_call_bit_equal": same}
+        ok = same and all(err[k] <= tol[k] for k in err)
+        if case == "training":
+            want, _ = ops.slstm_scan_reference(*(t.double() for t in x), rec.double(),
+                                               {k: v.double() for k, v in state.items()})
+            sides = {"kernel": (h.double() - want).abs().max().item(),
+                     "plain": (h_ref.double() - want).abs().max().item()}
+            record["h_err_against_float64"] = sides
+            record["float64_ratio_limit"] = SLSTM_F64_RATIO
+            ok = ok and sides["kernel"] <= SLSTM_F64_RATIO * sides["plain"]
+        emit(record)
+        if not ok:
+            raise AssertionError(f"slstm_scan disagrees: {record}")
+        errs[case] = err["h"]
+    return errs
+
+
+def slstm_chain_bound(torch, ops, dev, B, S, H, dh, barriers_a_step: int) -> dict:
+    """The chain bound of a call: S steps x ``barriers_a_step`` head
+    barriers, one barrier timed as 2,000 of them on the call's grid
+    (``ops.barrier_probe``, the forward's shared memory a block)."""
+    plan = ops.card_plan(B, H, dh, dev)
+    smem = 4 * ops.forward_smem_floats(B, dh, plan.columns)
+    n = 2000
+    barrier_ms = time_ms(torch, lambda: ops.barrier_probe(H, plan.blocks, n, smem, dev), [()],
+                         iters=5, warmup=1) / n
+    return {"plan": list(plan), "blocks": H * plan.blocks, "smem_bytes": smem,
+            "barrier_us": barrier_ms * 1e3, "barriers_a_step": barriers_a_step,
+            "chain_bound_ms": S * barriers_a_step * barrier_ms}
+
+
+def measure_slstm(torch, gen, dev, peak, B, S, H, dh):
+    """The forward kernel from a zero state, as the model calls it, timed as
+    the other kernels (``time_interleaved``: CUDA graphs of 20 calls, 7
+    turns), beside the plain version; its bound by bytes and by float32
+    operations (``cost.kernels.slstm``) and its chain bound (two barriers
+    a step). No library yardstick: no single PyTorch call computes this
+    cell (cuDNN's LSTM is another function)."""
+    from repro_torch.cost import kernels as work
+    from repro_torch.kernels.slstm_scan import ops
+    x, rec, state = _slstm_inputs(torch, gen, dev, B, S, H, dh)
+    inputs = [(*x, rec, state)]
+    turns = time_interleaved(torch, {"kernel": ops.slstm_scan}, inputs)["kernel"]
+    plain = time_ms(torch, ops.slstm_scan_reference, inputs, iters=2, warmup=1)
+    flops, nbytes = work.slstm(B, S, H, dh)
+    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh, 2)
+    return {**measured(turns["median"], plain, None, flops, nbytes, peak[2], peak[1]),
+            "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"], **chain,
+            "chain_share": chain["chain_bound_ms"] / turns["median"]}
+
+
+def check_slstm_backward(torch, gen, dev):
+    """dxz, dxi, dxf, dxo and drec of the backward kernel (and its product)
+    against ``slstm_scan_backward_reference`` on the same saved values (the
+    plain forward's) under ``grad_tol``; a second call gives the same bits.
+    Cases: ``slstm_shapes`` but the decode step, and inputs on which the
+    floor max(n, 1e-6) wins from step 0 (its share of the positions is
+    printed and must lie strictly between 0 and 1)."""
+    from repro_torch.kernels.slstm_scan import ops
+    from repro_torch.kernels.slstm_scan.ref import FLOOR
+    cases = [(case, B, S, H, dh, nonzero, 0.0) for case, B, S, H, dh, nonzero in slstm_shapes()
+             if S > 1]
+    cases += [("floor_wins", 2, 64, 4, 512, False, -20.0),
+              ("floor_wins_reduced", 2, 40, 4, 16, False, -20.0)]
+    names = ("dxz", "dxi", "dxf", "dxo", "drec")
+    errs = {}
+    for case, B, S, H, dh, nonzero, shift in cases:
+        x, rec, state = _slstm_inputs(torch, gen, dev, B, S, H, dh, nonzero, shift)
+        h, _, saved = ops.slstm_scan_reference(*x, rec, state, with_saved=True)
+        dy = torch.randn(B, S, H, dh, generator=gen, device=dev)
+        got = ops.slstm_scan_backward(rec, state, h, saved, dy)
+        again = ops.slstm_scan_backward(rec, state, h, saved, dy)
+        ref = ops.slstm_scan_backward_reference(rec, state, h, saved, dy)
+        torch.cuda.synchronize()
+        err, report, ok = grad_errors(torch, got, ref, names, torch.float32, 1e-4)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        share = (saved.n < FLOOR).float().mean().item()
+        record = {"phase": "check", "kernel": "slstm_scan_backward", "case": case,
+                  "shape": [B, S, H, dh], "plan": list(ops.card_plan(B, H, dh, dev)),
+                  "floor_share": share, "max_abs_err": err, **report,
+                  "second_call_bit_equal": same}
+        emit(record)
+        if shift:
+            ok = ok and 0.0 < share < 1.0 and bool((saved.n[:, 0] < FLOOR).all())
+        if not (ok and same):
+            raise AssertionError(f"slstm_scan backward disagrees: {record}")
+        errs[case] = err
+        del x, rec, state, h, saved, dy, got, again, ref
+    return errs
+
+
+def measure_slstm_backward(torch, gen, dev, peak, B=1, S=2048, H=4, dh=512):
+    """The backward kernel at xlstm-1.3b's training layer on the forward
+    kernel's saved values, timed as the forward (``time_interleaved``),
+    beside the plain formulas; its bound (``cost.kernels.slstm_backward``,
+    float32) and chain bound (one barrier a step). The product for drec is
+    timed on its own (``drec_ms``)."""
+    from repro_torch.cost import kernels as work
+    from repro_torch.kernels.slstm_scan import ops
+    from repro_torch.kernels.slstm_scan.ref import recurrent_grad
+    x, rec, state = _slstm_inputs(torch, gen, dev, B, S, H, dh)
+    h, _, saved = ops._launch(*x, rec, state, with_saved=True)
+    dy = torch.randn(B, S, H, dh, generator=gen, device=dev)
+    inputs = [(rec, state, h, saved, dy)]
+    turns = time_interleaved(torch, {"kernel": ops._launch_backward}, inputs)["kernel"]
+    dx = ops._launch_backward(*inputs[0])
+    drec = time_ms(torch, recurrent_grad, [(state["h"], h, dx)], iters=10)
+    plain = time_ms(torch, ops.slstm_scan_backward_reference, inputs, iters=1, warmup=1)
+    flops, nbytes = work.slstm_backward(B, S, H, dh)
+    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh, 1)
+    return {**measured(turns["median"], plain, None, flops, nbytes, peak[2], peak[1]),
+            "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"], "drec_ms": drec,
+            **chain, "chain_share": chain["chain_bound_ms"] / turns["median"]}
+
+
 def measured(kernel, plain, library, flops, nbytes, flops_peak, bw_peak) -> dict:
     """A ``measure_*`` result (ms); the bound is max(operations / peak rate of
     their type, bytes / HBM rate)."""
@@ -947,9 +1154,12 @@ PLAIN_VERSIONS = {  # wrapper module, plain version a CPU tensor takes
     "mlstm_chunk_backward": ("mlstm_chunk", "mlstm_chunk_backward_reference"),
     "rglru_scan": ("rglru_scan", "rglru_scan_reference"),
     "rglru_scan_backward": ("rglru_scan", "rglru_scan_backward_reference"),
+    "slstm_scan": ("slstm_scan", "slstm_scan_reference"),
+    "slstm_scan_backward": ("slstm_scan", "slstm_scan_backward_reference"),
 }
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward", "rglru_scan",
-                 "rglru_scan_backward", "mlstm_chunk", "mlstm_chunk_backward")
+                 "rglru_scan_backward", "mlstm_chunk", "mlstm_chunk_backward", "slstm_scan",
+                 "slstm_scan_backward")
 
 
 @contextlib.contextmanager
@@ -994,7 +1204,8 @@ def serve_counted(torch, argv):
     want.update({"flash_attention": rounds * n_attn,
                  "decode_attention": rounds * n_attn * (args.max_new - 1),
                  "mlstm_chunk": rounds * kinds.count("mlstm"),
-                 "rglru_scan": rounds * kinds.count("rglru")})
+                 "rglru_scan": rounds * kinds.count("rglru"),
+                 "slstm_scan": rounds * kinds.count("slstm") * args.max_new})
     done = report["completed"]
     ok_tokens = len(done) == args.requests and all(
         r.done is not None and len(r.done) == args.max_new and (r.done >= 0).all()
@@ -1276,7 +1487,7 @@ def orchestrator_phase(torch, out_dir: Path) -> dict:
 
 
 PORT_KERNELS = (r"flash_(tc|cc)_kernel|flash_bwd_\w+_kernel|decode_split_kernel|"
-                r"mlstm_\w+_kernel|rglru_scan(_bwd)?_kernel")
+                r"mlstm_\w+_kernel|rglru_scan(_bwd)?_kernel|slstm_scan(_bwd)?_kernel")
 GEMM_KERNELS = r"nvjet|gemm|cutlass|xmma"
 
 
@@ -2094,6 +2305,7 @@ def train_launches(cfg, steps: int, remat: bool) -> dict:
     n_attn = sum(k in ("attn", "local") for k in kinds)
     n_rglru = kinds.count("rglru")
     n_mlstm = kinds.count("mlstm")
+    n_slstm = kinds.count("slstm")
     fwd = 2 if remat else 1
     want = {name: 0 for name in PLAIN_VERSIONS}
     want.update({"flash_attention": fwd * n_attn * steps,
@@ -2101,7 +2313,9 @@ def train_launches(cfg, steps: int, remat: bool) -> dict:
                  "rglru_scan": fwd * n_rglru * steps,
                  "rglru_scan_backward": n_rglru * steps,
                  "mlstm_chunk": fwd * n_mlstm * steps,
-                 "mlstm_chunk_backward": n_mlstm * steps})
+                 "mlstm_chunk_backward": n_mlstm * steps,
+                 "slstm_scan": fwd * n_slstm * steps,
+                 "slstm_scan_backward": n_slstm * steps})
     return want
 
 
@@ -2647,12 +2861,12 @@ def train_launcher(torch, out_dir: Path) -> dict:
 
 
 # (arch, batch, sequence, least parameters, then): "cost" profiles a step and
-# counts one for the cost phase's cell; "xlstm_blocks" times one mLSTM and one
-# sLSTM block instead (the sLSTM's per-token loop makes a profile too slow)
+# counts one for the cost phase's cell; "xlstm_blocks" then times one mLSTM and
+# one sLSTM block as a step runs them
 FULL_WIDTH_TRAINING = (
-    ("recurrentgemma-2b", 1, 3072, 2.8e9, "cost"),     # longer than its 2048 window
-    ("musicgen-large", 1, 2048, 3.2e9, "cost"),        # frames of SyntheticLM's embeddings
-    ("xlstm-1.3b", 1, 2048, 2.8e9, "xlstm_blocks"),    # 42 mLSTM layers, 6 sLSTM loops
+    ("recurrentgemma-2b", 1, 3072, 2.8e9, ("cost",)),   # longer than its 2048 window
+    ("musicgen-large", 1, 2048, 3.2e9, ("cost",)),      # frames of SyntheticLM's embeddings
+    ("xlstm-1.3b", 1, 2048, 2.8e9, ("cost", "xlstm_blocks")),  # 42 mLSTM, 6 sLSTM layers
 )
 
 
@@ -2660,9 +2874,7 @@ def time_xlstm_train_blocks(torch, model, B: int, S: int, step_ms: float) -> Non
     """Host wall ms (after a synchronize) of one mLSTM and one sLSTM block of
     a training model at [B, S, D] as a step under remat "block" runs each:
     a forward without grad, the forward again under autograd, and its
-    backward; each kind's share of the step, by its layer count. Stands in
-    for the profiler, which the sLSTM's per-token loop (~10^6 launches a
-    step) makes too slow."""
+    backward; each kind's share of the step, by its layer count."""
     x = torch.randn(B, S, model.cfg.d_model, device=model.device).to(model.compute_dtype)
     kinds = model.cfg.layer_kinds()
     out = {}
@@ -2695,10 +2907,10 @@ def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
     labels), remat "block", no checkpoint. Per step: loss, grad_norm, wall
     ms (host clock around a step that ends in a synchronize); peak device
     memory, which must stay under the card's 80 GB; exact launches of the
-    forward and backward kernels. Then, as ``then`` says, a profiled step
-    and a counted one for the cost phase ("cost"), or the mLSTM and sLSTM
-    blocks' times (``time_xlstm_train_blocks``, "xlstm_blocks"). Returns
-    the launches and the losses."""
+    forward and backward kernels. Then, for each of ``then``, a profiled
+    step and a counted one for the cost phase ("cost"), or the mLSTM and
+    sLSTM blocks' times (``time_xlstm_train_blocks``, "xlstm_blocks").
+    Returns the launches and the losses."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -2739,15 +2951,16 @@ def train_full_width(torch, dev, out_dir: Path, arch: str, B: int, S: int,
               "launches": launches, "expected_launches": expected,
               "nvidia_smi": card_line()}
     emit(record)
-    if then == "cost":
-        profile_training(torch, trainer)
-        cost_cells[cfg.name] = counted_step(torch, lambda: trainer.train_steps(1),
-                                            (trainer.state,))
-        cost_cells[cfg.name]["measured_ms"] = step_ms
-    elif then == "xlstm_blocks":
-        time_xlstm_train_blocks(torch, trainer.state.params, B, S, step_ms)
-    else:
-        raise ValueError(f"{arch}: unknown follow-up {then!r}")
+    for follow in then:
+        if follow == "cost":
+            profile_training(torch, trainer)
+            cost_cells[cfg.name] = counted_step(torch, lambda: trainer.train_steps(1),
+                                                (trainer.state,))
+            cost_cells[cfg.name]["measured_ms"] = step_ms
+        elif follow == "xlstm_blocks":
+            time_xlstm_train_blocks(torch, trainer.state.params, B, S, step_ms)
+        else:
+            raise ValueError(f"{arch}: unknown follow-up {follow!r}")
     finite = all(math.isfinite(r[k]) for r in rows for k in ("loss", "nll", "grad_norm"))
     if not (finite and launches == expected and n_params > min_params
             and peak_bytes < 80e9 and trainer.mesh.size == 1):
@@ -2988,6 +3201,7 @@ COST_CELLS = (
      {"remat": "block"}),
     ("musicgen-large", "musicgen-large", ("train_1x2048", 2048, 1, "train"),
      {"remat": "block"}),
+    ("xlstm-1.3b", "xlstm-1.3b", ("train_1x2048", 2048, 1, "train"), {"remat": "block"}),
     ("qwen2-7b prefill", "qwen2-7b", ("prefill_4x512", 512, 4, "prefill"), {"max_len": 544}),
     ("qwen2-7b decode", "qwen2-7b", ("decode_4x544", 544, 4, "decode"), {}),
 )
@@ -3183,6 +3397,7 @@ def main() -> int:
     decode_err = check_decode(torch, gen, dev)
     mlstm_err = check_mlstm(torch, gen, dev)
     rglru_err, rglru_train_err = check_rglru(torch, gen, dev)
+    slstm_err = check_slstm(torch, gen, dev)
     flash_t = measure_flash(torch, gen, dev, peak, 4, 512, 28, 4, 128)
     flash_rg_t = measure_flash(torch, gen, dev, peak, 4, 512, 10, 1, 256, window=2048)
     decode_t = measure_decode(torch, gen, dev, peak, 4, 28, 4, 544, 128, n_caches=16)
@@ -3204,9 +3419,12 @@ def main() -> int:
     mlstm_t = measure_mlstm(torch, gen, dev, peak)
     rglru_t = measure_rglru(torch, gen, dev, peak)
     rglru_train_t = measure_rglru(torch, gen, dev, peak, 1, 3072, 2560)
+    slstm_t = measure_slstm(torch, gen, dev, peak, 4, 512, 4, 512)
+    slstm_train_t = measure_slstm(torch, gen, dev, peak, 1, 2048, 4, 512)
     flash_bwd_err = check_flash_backward(torch, gen, dev)
     rglru_bwd_err = check_rglru_backward(torch, gen, dev)
     mlstm_bwd_err = check_mlstm_backward(torch, gen, dev)
+    slstm_bwd_err = check_slstm_backward(torch, gen, dev)
     flash_bwd_t = measure_flash_backward(torch, gen, dev, peak, 1, 3072, 10, 1, 256, 2048)
     flash_bwd_qwen_t = measure_flash_backward(torch, gen, dev, peak, 4, 512, 28, 4, 128, 0)
     # musicgen-large's training shape, forward (SDPA beside) and backward
@@ -3215,6 +3433,7 @@ def main() -> int:
     rglru_bwd_t = measure_rglru_backward(torch, gen, dev, peak, 1, 3072, 2560)
     rglru_bwd_4_t = measure_rglru_backward(torch, gen, dev, peak, 4, 512, 2560)
     mlstm_bwd_t = measure_mlstm_backward(torch, gen, dev, peak)
+    slstm_bwd_t = measure_slstm_backward(torch, gen, dev, peak)
     from repro_torch.kernels.queue_core import ops as queue_ops
     queue_err = check_queue(torch, dev)
     campaign_dir = ROOT / "build" / "chip_smoke_campaign"
@@ -3368,6 +3587,19 @@ def main() -> int:
                    replaces_kind="new: the JAX package differentiates mlstm_chunkwise "
                                  "through XLA; no Pallas backward",
                    shape=[1, 2048, 4, 512, 1024, "chunk 256", "bf16"]),
+        kernel_row("slstm_scan", "src/repro_torch/kernels/slstm_scan/csrc/slstm_scan.cu",
+                   "src/repro/models/xlstm.py:306", slstm_err["serving_prefill"], slstm_t,
+                   launches["slstm_scan"],
+                   replaces_kind="XLA program (lax.scan of _slstm_cell), not Pallas",
+                   shape=[4, 512, 4, 512, "float32"],
+                   training_shape=shape_figures([1, 2048, 4, 512], slstm_err["training"],
+                                                slstm_train_t)),
+        kernel_row("slstm_scan_backward", "src/repro_torch/kernels/slstm_scan/csrc/"
+                   "slstm_scan.cu", "src/repro/models/xlstm.py:306",
+                   slstm_bwd_err["training"], slstm_bwd_t, launches["slstm_scan_backward"],
+                   replaces_kind="new: the JAX package differentiates the lax.scan of "
+                                 "_slstm_cell through XLA; no Pallas backward",
+                   shape=[1, 2048, 4, 512, "float32"]),
     ]
     emit({"phase": "done"})
     print(card, flush=True)

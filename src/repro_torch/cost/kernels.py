@@ -121,3 +121,35 @@ def rglru_backward(B: int, S: int, W: int) -> Work:
     """Two multiply-add-sized operations and a product a step (float32); a,
     h, dh and h0 in, da, db and dh0 out."""
     return 3 * B * S * W, 4 * (5 * B * S * W + 2 * B * W)
+
+
+SLSTM_GATE_OPS = 13       # a column's step: 4 gate sums, 2 for the means, 3 c, 2 n, 2 h
+SLSTM_BWD_OPS = 25        # a column's step of the backward's elementwise terms
+
+
+def slstm(B: int, S: int, H: int, dh: int, saved: bool = False) -> Work:
+    """The sLSTM recurrence of one layer: each step's four recurrent
+    products h_{t-1} rec[g] (2 dh^2 a row, head and gate) and the gates;
+    xz, xi, xf, xo and rec in, the state (h, c, n [B, H, dh], m [B, H]) in
+    and out, h out, all float32; ``saved`` (training) also c, n, z, o and
+    the head's three gate scalars of every step out."""
+    flops = 8 * B * S * H * dh * dh + SLSTM_GATE_OPS * B * S * H * dh
+    state = 3 * B * H * dh + B * H
+    words = 5 * B * S * H * dh + 4 * H * dh * dh + 2 * state
+    if saved:
+        words += 4 * B * S * H * dh + 3 * B * S * H
+    return flops, 4 * words
+
+
+def slstm_backward(B: int, S: int, H: int, dh: int) -> Work:
+    """The sLSTM backward kernel (drec is a product outside it): for every
+    step but the first, the z and o gates' dpre times rec's rows (4 dh^2 a
+    row and head) and the i and f gates' row sums times their scalar, once
+    the row sums (2 H dh^2), and the elementwise terms; the saved c, n, z, o
+    and gate scalars, dh, rec and the initial (c, n, m) in, dxz, dxi, dxf
+    and dxo out, all float32."""
+    flops = (4 * B * (S - 1) * H * dh * (dh + 1) + 2 * H * dh * dh
+             + SLSTM_BWD_OPS * B * S * H * dh)
+    words = (5 * B * S * H * dh + 3 * B * S * H + 4 * H * dh * dh + 2 * B * H * dh + B * H
+             + 4 * B * S * H * dh)
+    return flops, 4 * words

@@ -10,11 +10,13 @@ and ``rec`` are float32 whatever ``param_dtype`` is, as in JAX.
 
 The mLSTM train forward and prefill go through the port's ``mlstm_chunk``
 (on the card the CUDA kernels: the forward, which also returns the final
-state for the cache, and under autograd the backward). The mLSTM decode
-step and the sLSTM recurrence are plain PyTorch: the JAX package has no
-kernel for either (``lax.scan`` for sLSTM). Decode steps update the cache
-dict in place: ``C`` and ``n`` are rescaled and accumulated in their own
-storage, ``m`` and ``conv`` (and the sLSTM ``h, c, n, m``) are replaced.
+state for the cache, and under autograd the backward). The sLSTM
+recurrence, in prefill, decode and the train forward and backward, goes
+through ``slstm_scan`` (on the card one kernel launch a layer and call,
+where the JAX package runs a ``lax.scan``). The mLSTM decode step is plain
+PyTorch, as in JAX. Decode steps update the cache dict in place: ``C`` and
+``n`` are rescaled and accumulated in their own storage, ``m`` and ``conv``
+(and the sLSTM ``h, c, n, m``) are replaced.
 
 Under tensor parallelism the mixers' own leaves are replicated
 (``param_specs``' ``_XLSTM``): every rank of the model group computes the
@@ -34,6 +36,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+from repro_torch.kernels.slstm_scan.ops import slstm_scan
 from repro_torch.models.layers import Dense, _empty, activation
 
 Cache = Dict[str, torch.Tensor]
@@ -199,35 +202,6 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
             "m": torch.zeros((batch, H), **f32)}
 
 
-def recurrent_weights(rec: torch.Tensor) -> torch.Tensor:
-    """rec [4,H,dh,dh] laid out once per sequence as [H, dh, 4·dh], the
-    operand of each step's product. ``einsum("bhd,ghde->gbhe")`` makes this
-    copy at every step, and autograd keeps each one: 16 MB a step at
-    xlstm-1.3b's widths, 34 GB over a 2048-token training sequence."""
-    g, H, dh, _ = rec.shape
-    return rec.permute(1, 2, 0, 3).reshape(H, dh, g * dh)
-
-
-def slstm_cell(rec_t: torch.Tensor, xz, xi, xf, xo, state: Cache) -> Cache:
-    """One step. x*: [B,H,dh] float32 input projections; rec_t
-    ``recurrent_weights(rec)`` [H, dh, 4·dh]."""
-    h, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    B, H, dh = h.shape
-    # einsum("bhd,ghde->gbhe", h, rec) as the einsum computes it: one bmm
-    r = torch.bmm(h.transpose(0, 1), rec_t).view(H, B, 4, dh).permute(2, 1, 0, 3)
-    z = torch.tanh(xz + r[0])
-    i_log = (xi + r[1]).mean(dim=-1)                      # per-head scalar gates
-    f_log = F.logsigmoid((xf + r[2]).mean(dim=-1))
-    o = torch.sigmoid(xo + r[3])
-    m_new = torch.maximum(f_log + m, i_log)
-    ibar = torch.exp(i_log - m_new)[..., None]
-    fbar = torch.exp(f_log + m - m_new)[..., None]
-    c_new = fbar * c + ibar * z
-    n_new = fbar * n + ibar
-    h_new = o * c_new / n_new.clamp_min(1e-6)
-    return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
-
-
 class SLSTMBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
@@ -269,23 +243,19 @@ class SLSTMBlock(nn.Module):
         return self.w_ff_down(self.act(self.w_ff_up(h)), seq_cut)
 
     def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
-        """Train mode (``slstm_block_forward``): x [B,S,D] -> [B,S,D]."""
+        """Train mode (``slstm_block_forward``): x [B,S,D] -> [B,S,D]; under
+        autograd ``slstm_scan``'s backward kernel (the plain formulas on the
+        CPU) gives the gradients."""
         return self._out(self._recur(x)[0], x.dtype, seq_cut)
 
     def _recur(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """The recurrence step by step over S from a zero state: h [B,S,H,dh]
-        and the final state."""
-        xz, xi, xf, xo = self._inputs(x)
+        """The recurrence over S from a zero state (``slstm_scan``: one kernel
+        launch on the card): h [B,S,H,dh] and the final state."""
         state = init_slstm_cache(self.cfg, x.shape[0], device=x.device)
-        rec_t = recurrent_weights(self.rec)
-        hs = []
-        for s in range(x.shape[1]):
-            state = slstm_cell(rec_t, xz[:, s], xi[:, s], xf[:, s], xo[:, s], state)
-            hs.append(state["h"])
-        return torch.stack(hs, dim=1), state
+        return slstm_scan(*self._inputs(x), self.rec, state)
 
     def prefill(self, x: torch.Tensor, max_len: int = 0) -> Tuple[torch.Tensor, Cache]:
-        """x [B,S,D]: the recurrence step by step over S from a zero state
+        """x [B,S,D]: the recurrence over S from a zero state
         (``slstm_block_forward``); returns y and the final state.
         ``max_len`` is unused."""
         h, state = self._recur(x)
@@ -293,8 +263,9 @@ class SLSTMBlock(nn.Module):
 
     def decode(self, x: torch.Tensor, cache: Cache,
                cur_pos: int = 0) -> Tuple[torch.Tensor, Cache]:
-        """One token, x [B,1,D]; the new state replaces the cache's entries.
-        ``cur_pos`` is unused."""
-        xz, xi, xf, xo = self._inputs(x[:, 0])
-        cache.update(slstm_cell(recurrent_weights(self.rec), xz, xi, xf, xo, cache))
-        return self._out(cache["h"][:, None], x.dtype), cache
+        """One token, x [B,1,D]: ``slstm_scan`` at S = 1 from the cache's
+        state; the new state replaces the cache's entries. ``cur_pos`` is
+        unused."""
+        h, state = slstm_scan(*self._inputs(x), self.rec, cache)
+        cache.update(state)
+        return self._out(h, x.dtype), cache

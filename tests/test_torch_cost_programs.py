@@ -17,6 +17,12 @@ named; what is left is held within 2%:
   as one program of their own (``jax.vjp`` of ``mlstm_chunkwise`` at the
   layer's shapes, by the same ``analyze_text``), the port's by its two
   kernels' formulas (``cost.kernels.mlstm`` and ``mlstm_backward``).
+* sLSTM: JAX runs a ``lax.scan`` of ``_slstm_cell`` (four einsums a step),
+  and in a train step differentiates it through XLA (``jax.vjp`` of that
+  scan, counted as a program of its own at the layer's shapes); the port
+  runs one ``slstm_scan`` kernel a layer and, in training, its backward
+  kernel and one product for the recurrent weights' gradient, counted by
+  ``cost.kernels.slstm`` and ``slstm_backward`` and the product's formula.
 
 Decode attention reads every slot on both sides: no term.
 """
@@ -111,6 +117,41 @@ def _mlstm_train_terms(cfg, jcfg, B, S):
     return jax_f, port_f
 
 
+def _slstm_terms(cfg, B, S, passes):
+    """(JAX's, the port's) sLSTM FLOPs of one forward (``passes`` "forward")
+    or of a train step without remat ("train")."""
+    from repro.models.xlstm import _slstm_cell
+    n = cfg.layer_kinds().count("slstm")
+    H = cfg.num_heads
+    dh = cfg.d_model // H
+    f32 = jnp.float32
+    args = [jax.ShapeDtypeStruct(shape, f32) for shape in
+            [(B, S, H, dh)] * 4 + [(4, H, dh, dh)]]
+
+    def scan(xz, xi, xf, xo, rec):
+        state = {k: jnp.zeros((B, H, dh) if k != "m" else (B, H), f32) for k in "hcnm"}
+
+        def step(st, inp):
+            st = _slstm_cell(rec, *inp, st)
+            return st, st["h"]
+
+        _, hs = jax.lax.scan(step, state, tuple(a.transpose(1, 0, 2, 3)
+                                                for a in (xz, xi, xf, xo)))
+        return hs
+
+    if passes == "forward":
+        return n * _jax_flops(scan, *args), n * work.slstm(B, S, H, dh)[0]
+
+    def fwd_bwd(*a):
+        h, vjp = jax.vjp(scan, *a)
+        return vjp(h)
+
+    drec = 2 * 4 * H * dh * B * S * dh          # the product h_{t-1}^T dpre
+    port_f = (work.slstm(B, S, H, dh, saved=True)[0] + work.slstm_backward(B, S, H, dh)[0]
+              + drec)
+    return n * _jax_flops(fwd_bwd, *args), n * port_f
+
+
 def _hold(jax_total, port_total, terms):
     jax_rest = jax_total - sum(t[0] for t in terms.values())
     port_rest = port_total - sum(t[1] for t in terms.values())
@@ -145,10 +186,12 @@ def test_xlstm_train_step_flops_match_jax():
     with CostCounter() as c:
         make_train_step(cfg, tcfg)(tstate, tbatch)
     t = c.totals()
-    n = cfg.layer_kinds().count("mlstm")
+    n, n_s = cfg.layer_kinds().count("mlstm"), cfg.layer_kinds().count("slstm")
     assert {k: v["launches"] for k, v in t["kernel_detail"].items()} == {
-        "mlstm_chunk": n, "mlstm_chunk_backward": n}
-    _hold(jf, t["flops"], {"mlstm": _mlstm_train_terms(cfg, jcfg, B, S)})
+        "mlstm_chunk": n, "mlstm_chunk_backward": n, "slstm_scan": n_s,
+        "slstm_scan_backward": n_s}
+    _hold(jf, t["flops"], {"mlstm": _mlstm_train_terms(cfg, jcfg, B, S),
+                           "slstm": _slstm_terms(cfg, B, S, "train")})
 
 
 def test_qwen3_moe_prefill_flops_match_jax():
@@ -193,4 +236,9 @@ def test_xlstm_prefill_flops_match_jax():
     with torch.no_grad(), CostCounter() as c:
         make_prefill_fn(cfg, max_len=S)(model, torch.empty((B, S), dtype=torch.int32,
                                                               device="meta"))
-    _hold(jf, c.totals()["flops"], {"mlstm": _mlstm_terms(cfg, B, S)})
+    t = c.totals()
+    kinds = cfg.layer_kinds()
+    assert {k: v["launches"] for k, v in t["kernel_detail"].items()} == {
+        "mlstm_chunk": kinds.count("mlstm"), "slstm_scan": kinds.count("slstm")}
+    _hold(jf, t["flops"], {"mlstm": _mlstm_terms(cfg, B, S),
+                           "slstm": _slstm_terms(cfg, B, S, "forward")})

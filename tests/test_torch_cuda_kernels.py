@@ -1305,3 +1305,149 @@ def test_mlstm_chunk_under_autograd_launches_the_backward_on_the_card(cuda, dtyp
     assert (ops.mlstm_chunk.launches, ops.mlstm_chunk_backward.launches) == (f0 + 1, b0 + 1)
     ref = ops.mlstm_chunk_backward_reference(*(t.detach() for t in ts), h.detach(), dh)
     _assert_grads_close(got, ref, ("dq", "dk", "dv", "di", "df"), dtype, _mlstm_bwd_tol(dtype))
+
+
+# ----------------------------------------------------------------- sLSTM
+
+SLSTM_CASES = [  # (B, S, H, dh, a non-zero initial state)
+    (4, 512, 4, 512, False),     # xlstm-1.3b's serving prefill: 32 blocks a head
+    (1, 2048, 4, 512, False),    # its training layer
+    (4, 1, 4, 512, True),        # a decode step from the cache's state
+    (8, 8, 4, 16, False),        # the launchers' reduced dh 16: one block a head
+    (2, 40, 2, 128, True),       # chip_smoke's small xLSTM model: 64 blocks of 2 columns
+    (3, 33, 3, 100, True),       # a whole head of 100 columns a block
+]
+
+
+def _slstm_state(gen, B, H, dh, nonzero):
+    if not nonzero:
+        return {k: torch.zeros((B, H, dh) if k != "m" else (B, H), device="cuda") for k in "hcnm"}
+    return {"h": _randn(gen, B, H, dh, dtype=torch.float32) * 0.5,
+            "c": _randn(gen, B, H, dh, dtype=torch.float32),
+            "n": torch.rand(B, H, dh, generator=gen, device="cuda") * 1.5 + 0.5,
+            "m": _randn(gen, B, H, dtype=torch.float32)}
+
+
+def _slstm_inputs(gen, B, S, H, dh, nonzero=False):
+    x = [_randn(gen, B, S, H, dh, dtype=torch.float32) for _ in range(4)]
+    rec = _randn(gen, 4, H, dh, dh, dtype=torch.float32) / dh ** 0.5
+    return x, rec, _slstm_state(gen, B, H, dh, nonzero)
+
+
+def _slstm_close(got, want, what):
+    """h at atol 1e-5; a state tensor at 1e-5 of max(1, its largest value):
+    n and c grow with the steps, float32 sums in another order."""
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("B,S,H,dh,nonzero", SLSTM_CASES)
+def test_slstm_scan_kernel_matches_plain(cuda, B, S, H, dh, nonzero):
+    from repro_torch.kernels.slstm_scan import ops
+    x, rec, state = _slstm_inputs(cuda, B, S, H, dh, nonzero)
+    before = ops.slstm_scan.launches
+    h, final = ops.slstm_scan(*x, rec, state)
+    h2, final2 = ops.slstm_scan(*x, rec, state)
+    h_ref, final_ref = ops.slstm_scan_reference(*x, rec, state)
+    torch.cuda.synchronize()
+    assert ops.slstm_scan.launches == before + 2
+    _slstm_close(h, h_ref, "h")
+    for k in "hcnm":
+        _slstm_close(final[k], final_ref[k], k)
+        assert torch.equal(final[k], final2[k]), k
+    assert torch.equal(h, h2)
+
+
+def test_slstm_scan_at_s_2048_against_float64(cuda):
+    """The forward at xlstm-1.3b's training layer: the kernel's worst error
+    in h against a float64 run of the plain version at most 3x the plain
+    float32 version's."""
+    from repro_torch.kernels.slstm_scan import ops
+    x, rec, state = _slstm_inputs(cuda, 1, 2048, 4, 512)
+    want, _ = ops.slstm_scan_reference(*(t.double() for t in x), rec.double(),
+                                       {k: v.double() for k, v in state.items()})
+    got, _ = ops.slstm_scan(*x, rec, state)
+    plain, _ = ops.slstm_scan_reference(*x, rec, state)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 3 * (plain.double() - want).abs().max().item(), err
+
+
+SLSTM_BWD_CASES = [  # (B, S, H, dh, input gate shift on the first 3 steps: the floor wins)
+    (1, 2048, 4, 512, 0.0), (4, 512, 4, 512, 0.0), (8, 128, 4, 16, 0.0),
+    (2, 40, 2, 128, 0.0), (3, 33, 3, 100, 0.0), (2, 64, 4, 512, -20.0), (2, 40, 4, 16, -20.0),
+]
+
+
+@pytest.mark.parametrize("B,S,H,dh,shift", SLSTM_BWD_CASES)
+def test_slstm_backward_kernel_matches_plain(cuda, B, S, H, dh, shift):
+    """dxz, dxi, dxf, dxo and drec of the backward kernel (and its product)
+    against the plain formulas on the same saved values (the plain
+    forward's), under ``_assert_grads_close`` at float32; a second call
+    gives the same bits. ``shift``: the input gate 20 below the forget
+    gate on the first steps, where the floor max(n, 1e-6) wins."""
+    from repro_torch.kernels.slstm_scan import ops
+    from repro_torch.kernels.slstm_scan.ref import FLOOR
+    x, rec, state = _slstm_inputs(cuda, B, S, H, dh)
+    if shift:
+        x[1][:, :3] += shift
+        x[2][:, :3] += 4.0
+    h, _, saved = ops.slstm_scan_reference(*x, rec, state, with_saved=True)
+    if shift:
+        share = (saved.n < FLOOR).float().mean().item()
+        assert 0.0 < share < 1.0 and bool((saved.n[:, 0] < FLOOR).all()), share
+    dh_out = _randn(cuda, B, S, H, dh, dtype=torch.float32)
+    before = ops.slstm_scan_backward.launches
+    got = ops.slstm_scan_backward(rec, state, h, saved, dh_out)
+    again = ops.slstm_scan_backward(rec, state, h, saved, dh_out)
+    ref = ops.slstm_scan_backward_reference(rec, state, h, saved, dh_out)
+    torch.cuda.synchronize()
+    assert ops.slstm_scan_backward.launches == before + 2
+    _assert_grads_close(got, ref, ("dxz", "dxi", "dxf", "dxo", "drec"), torch.float32, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_slstm_kernel_saves_what_the_plain_forward_saves(cuda):
+    from repro_torch.kernels.slstm_scan import ops
+    x, rec, state = _slstm_inputs(cuda, 2, 300, 4, 512, nonzero=True)
+    h, _, saved = ops._launch(*x, rec, state, with_saved=True)
+    h_ref, _, saved_ref = ops.slstm_scan_reference(*x, rec, state, with_saved=True)
+    _slstm_close(h, h_ref, "h")
+    for name, g, r in zip(saved._fields, saved, saved_ref):
+        _slstm_close(g, r, name)
+
+
+def test_slstm_scan_under_autograd_launches_both_kernels_on_the_card(cuda):
+    from repro_torch.kernels.slstm_scan import ops
+    x, rec, state = _slstm_inputs(cuda, 2, 256, 4, 512)
+    leaves = [t.requires_grad_(True) for t in (*x, rec)]
+    dh_out = _randn(cuda, 2, 256, 4, 512, dtype=torch.float32)
+    f0, b0 = ops.slstm_scan.launches, ops.slstm_scan_backward.launches
+    assert not torch.backends.cuda.matmul.allow_tf32          # drec's product in float32
+    h, final = ops.slstm_scan(*leaves, state)
+    got = torch.autograd.grad(h, leaves, dh_out)
+    torch.cuda.synchronize()
+    assert (ops.slstm_scan.launches, ops.slstm_scan_backward.launches) == (f0 + 1, b0 + 1)
+    assert not any(t.requires_grad for t in final.values())
+    plain = [t.detach() for t in leaves]
+    h_ref, _, saved = ops.slstm_scan_reference(*plain[:4], plain[4], state, with_saved=True)
+    ref = ops.slstm_scan_backward_reference(plain[4], state, h_ref, saved, dh_out)
+    _assert_grads_close(got, ref, ("dxz", "dxi", "dxf", "dxo", "drec"), torch.float32, 1e-4)
+
+
+def test_slstm_plan_is_resident_and_the_wrapper_rejects(cuda):
+    from repro_torch.kernels.slstm_scan import ops
+    for B, H, dh in ((4, 4, 512), (1, 4, 512), (8, 4, 16), (2, 2, 128)):
+        C, P = ops.card_plan(B, H, dh, torch.device("cuda"))
+        for forward, floats in ((True, ops.forward_smem_floats), (False, ops.backward_smem_floats)):
+            smem, per_sm, sms = ops.residency(B, dh, C, forward)
+            assert smem == 4 * floats(B, dh, C)
+            assert per_sm >= 1 and (P == 1 or per_sm * sms >= H * P)
+    x, rec, state = _slstm_inputs(cuda, 2, 8, 4, 16)
+    with pytest.raises(ValueError):
+        ops.slstm_scan(x[0].double(), *x[1:], rec, state)
+    with pytest.raises(ValueError):
+        ops.slstm_scan(*x[:3], x[3].transpose(0, 1).contiguous().transpose(0, 1), rec, state)
+    x, rec, state = _slstm_inputs(cuda, 2, 8, 64, 512)
+    with pytest.raises(ValueError):                    # 64 heads of 512: no resident grid
+        ops.slstm_scan(*x, rec, state)
