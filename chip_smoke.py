@@ -33,14 +33,14 @@ Phases, each of which fails the run on any error:
    serving prefill [4, 512, 4, 512] and training layer [1, 2048, 4, 512]
    (there also against a float64 run of the plain version: the kernel's
    error at most 3x the plain float32's), a decode step (S = 1) from a
-   non-zero state, the launchers' reduced dh 16 and the small xLSTM
-   model's widths, a second call bit-equal),
+   non-zero state, the launchers' reduced dh 16, the small xLSTM
+   model's widths and 35 rows in row groups, a second call bit-equal),
    and timed beside its plain version, one PyTorch call computing the same
    function where there is one (``F.scaled_dot_product_attention``; none
    for the mLSTM, the scan or the sLSTM: a yardstick the port never calls)
    and its bound (bytes over HBM rate, operations over the peak rate of
-   their type; the sLSTM also its chain bound, S steps x its head
-   barriers, one barrier timed on its grid by ``slstm_barrier_kernel``). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
+   their type; the sLSTM also its chain bound, S steps x one cluster
+   barrier, one barrier timed on its grid by ``slstm_barrier_kernel``). The kernels and SDPA are timed as CUDA graphs of 20 calls (device
    time, no host gaps) in 7 turns of alternating order: the median, with
    the min and max and the time of calls made one by one from the host
    (``eager_ms``). Flash and decode are timed also at qwen3-moe-30b-a3b's
@@ -855,13 +855,27 @@ SLSTM_ATOL = 1e-5
 SLSTM_F64_RATIO = 3.0
 
 
+# 35 rows at xlstm-1.3b's heads: several row groups (ops.scan_plan)
+SLSTM_BATCH_35 = ("batch_35", 35, 64, 4, 512, True)
+
+
+def slstm_plan(ops, B, H, dh, dev) -> dict:
+    """The kernels' plan at a shape, named, with the clusters the card runs
+    at once (``cudaOccupancyMaxActiveClusters``), forward and backward."""
+    plan = ops.card_plan(B, H, dh, dev)
+    return {"P": plan.blocks, "C": plan.columns, "Bc": plan.rows, "groups": plan.groups,
+            "clusters": H * plan.groups,
+            "max_active_clusters": {"forward": ops.residency(plan, dh, True)[1],
+                                    "backward": ops.residency(plan, dh, False)[1]}}
+
+
 def check_slstm(torch, gen, dev):
     """The forward kernel against ``slstm_scan_reference`` on the card at
-    ``slstm_shapes``: h and the final (h, c, n, m), and a second call's
-    bits. At the training layer also both against float64."""
+    ``slstm_shapes`` and 35 rows: h and the final (h, c, n, m), and a
+    second call's bits. At the training layer also both against float64."""
     from repro_torch.kernels.slstm_scan import ops
     errs = {}
-    for case, B, S, H, dh, nonzero in slstm_shapes():
+    for case, B, S, H, dh, nonzero in slstm_shapes() + [SLSTM_BATCH_35]:
         x, rec, state = _slstm_inputs(torch, gen, dev, B, S, H, dh, nonzero)
         h, final = ops.slstm_scan(*x, rec, state)
         h2, final2 = ops.slstm_scan(*x, rec, state)
@@ -873,7 +887,7 @@ def check_slstm(torch, gen, dev):
                                    for k in "hcnm"}}
         same = torch.equal(h, h2) and all(torch.equal(final[k], final2[k]) for k in "hcnm")
         record = {"phase": "check", "kernel": "slstm_scan", "case": case, "shape": [B, S, H, dh],
-                  "plan": list(ops.card_plan(B, H, dh, dev)), "nonzero_state": nonzero,
+                  "plan": slstm_plan(ops, B, H, dh, dev), "nonzero_state": nonzero,
                   "max_abs_err": err["h"], "final_state_err": {k: err[k] for k in "hcnm"},
                   "tol": tol, "second_call_bit_equal": same}
         ok = same and all(err[k] <= tol[k] for k in err)
@@ -892,26 +906,28 @@ def check_slstm(torch, gen, dev):
     return errs
 
 
-def slstm_chain_bound(torch, ops, dev, B, S, H, dh, barriers_a_step: int) -> dict:
-    """The chain bound of a call: S steps x ``barriers_a_step`` head
-    barriers, one barrier timed as 2,000 of them on the call's grid
-    (``ops.barrier_probe``, the forward's shared memory a block)."""
+def slstm_chain_bound(torch, ops, dev, B, S, H, dh) -> dict:
+    """The chain bound of a call: S steps x one cluster barrier, one
+    barrier timed as 2,000 of them on the call's grid (``ops.barrier_probe``,
+    the forward's shared memory a block)."""
     plan = ops.card_plan(B, H, dh, dev)
-    smem = 4 * ops.forward_smem_floats(B, dh, plan.columns)
     n = 2000
-    barrier_ms = time_ms(torch, lambda: ops.barrier_probe(H, plan.blocks, n, smem, dev), [()],
+    barrier_ms = time_ms(torch, lambda: ops.barrier_probe(plan, H, dh, n, dev), [()],
                          iters=5, warmup=1) / n
-    return {"plan": list(plan), "blocks": H * plan.blocks, "smem_bytes": smem,
-            "barrier_us": barrier_ms * 1e3, "barriers_a_step": barriers_a_step,
-            "chain_bound_ms": S * barriers_a_step * barrier_ms}
+    return {"plan": slstm_plan(ops, B, H, dh, dev),
+            "blocks": H * plan.groups * plan.blocks,
+            "smem_bytes": {"forward": ops.residency(plan, dh, True)[0],
+                           "backward": ops.residency(plan, dh, False)[0]},
+            "barrier_us": barrier_ms * 1e3, "barriers_a_step": 1,
+            "chain_bound_ms": S * barrier_ms}
 
 
 def measure_slstm(torch, gen, dev, peak, B, S, H, dh):
     """The forward kernel from a zero state, as the model calls it, timed as
     the other kernels (``time_interleaved``: CUDA graphs of 20 calls, 7
     turns), beside the plain version; its bound by bytes and by float32
-    operations (``cost.kernels.slstm``) and its chain bound (two barriers
-    a step). No library yardstick: no single PyTorch call computes this
+    operations (``cost.kernels.slstm``, the factored work) and its chain
+    bound (one cluster barrier a step). No library yardstick: no single PyTorch call computes this
     cell (cuDNN's LSTM is another function)."""
     from repro_torch.cost import kernels as work
     from repro_torch.kernels.slstm_scan import ops
@@ -920,7 +936,7 @@ def measure_slstm(torch, gen, dev, peak, B, S, H, dh):
     turns = time_interleaved(torch, {"kernel": ops.slstm_scan}, inputs)["kernel"]
     plain = time_ms(torch, ops.slstm_scan_reference, inputs, iters=2, warmup=1)
     flops, nbytes = work.slstm(B, S, H, dh)
-    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh, 2)
+    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh)
     return {**measured(turns["median"], plain, None, flops, nbytes, peak[2], peak[1]),
             "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"], **chain,
             "chain_share": chain["chain_bound_ms"] / turns["median"]}
@@ -930,13 +946,13 @@ def check_slstm_backward(torch, gen, dev):
     """dxz, dxi, dxf, dxo and drec of the backward kernel (and its product)
     against ``slstm_scan_backward_reference`` on the same saved values (the
     plain forward's) under ``grad_tol``; a second call gives the same bits.
-    Cases: ``slstm_shapes`` but the decode step, and inputs on which the
-    floor max(n, 1e-6) wins from step 0 (its share of the positions is
-    printed and must lie strictly between 0 and 1)."""
+    Cases: ``slstm_shapes`` but the decode step, 35 rows, and inputs on
+    which the floor max(n, 1e-6) wins from step 0 (its share of the
+    positions is printed and must lie strictly between 0 and 1)."""
     from repro_torch.kernels.slstm_scan import ops
     from repro_torch.kernels.slstm_scan.ref import FLOOR
-    cases = [(case, B, S, H, dh, nonzero, 0.0) for case, B, S, H, dh, nonzero in slstm_shapes()
-             if S > 1]
+    cases = [(case, B, S, H, dh, nonzero, 0.0)
+             for case, B, S, H, dh, nonzero in slstm_shapes() + [SLSTM_BATCH_35] if S > 1]
     cases += [("floor_wins", 2, 64, 4, 512, False, -20.0),
               ("floor_wins_reduced", 2, 40, 4, 16, False, -20.0)]
     names = ("dxz", "dxi", "dxf", "dxo", "drec")
@@ -953,7 +969,7 @@ def check_slstm_backward(torch, gen, dev):
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         share = (saved.n < FLOOR).float().mean().item()
         record = {"phase": "check", "kernel": "slstm_scan_backward", "case": case,
-                  "shape": [B, S, H, dh], "plan": list(ops.card_plan(B, H, dh, dev)),
+                  "shape": [B, S, H, dh], "plan": slstm_plan(ops, B, H, dh, dev),
                   "floor_share": share, "max_abs_err": err, **report,
                   "second_call_bit_equal": same}
         emit(record)
@@ -970,8 +986,8 @@ def measure_slstm_backward(torch, gen, dev, peak, B=1, S=2048, H=4, dh=512):
     """The backward kernel at xlstm-1.3b's training layer on the forward
     kernel's saved values, timed as the forward (``time_interleaved``),
     beside the plain formulas; its bound (``cost.kernels.slstm_backward``,
-    float32) and chain bound (one barrier a step). The product for drec is
-    timed on its own (``drec_ms``)."""
+    float32) and chain bound (one cluster barrier a step). The product for
+    drec is timed on its own (``drec_ms``)."""
     from repro_torch.cost import kernels as work
     from repro_torch.kernels.slstm_scan import ops
     from repro_torch.kernels.slstm_scan.ref import recurrent_grad
@@ -984,7 +1000,7 @@ def measure_slstm_backward(torch, gen, dev, peak, B=1, S=2048, H=4, dh=512):
     drec = time_ms(torch, recurrent_grad, [(state["h"], h, dx)], iters=10)
     plain = time_ms(torch, ops.slstm_scan_backward_reference, inputs, iters=1, warmup=1)
     flops, nbytes = work.slstm_backward(B, S, H, dh)
-    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh, 1)
+    chain = slstm_chain_bound(torch, ops, dev, B, S, H, dh)
     return {**measured(turns["median"], plain, None, flops, nbytes, peak[2], peak[1]),
             "min_max_ms": turns["min_max"], "eager_ms": turns["eager_ms"], "drec_ms": drec,
             **chain, "chain_share": chain["chain_bound_ms"] / turns["median"]}

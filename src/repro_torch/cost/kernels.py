@@ -123,17 +123,21 @@ def rglru_backward(B: int, S: int, W: int) -> Work:
     return 3 * B * S * W, 4 * (5 * B * S * W + 2 * B * W)
 
 
-SLSTM_GATE_OPS = 13       # a column's step: 4 gate sums, 2 for the means, 3 c, 2 n, 2 h
+# a column's step: the z and o sums, two terms xi / dh + h rho (3 each) and
+# their sums, 3 c, 2 n, 2 h
+SLSTM_GATE_OPS = 17
 SLSTM_BWD_OPS = 25        # a column's step of the backward's elementwise terms
 
 
 def slstm(B: int, S: int, H: int, dh: int, saved: bool = False) -> Work:
-    """The sLSTM recurrence of one layer: each step's four recurrent
-    products h_{t-1} rec[g] (2 dh^2 a row, head and gate) and the gates;
-    xz, xi, xf, xo and rec in, the state (h, c, n [B, H, dh], m [B, H]) in
-    and out, h out, all float32; ``saved`` (training) also c, n, z, o and
-    the head's three gate scalars of every step out."""
-    flops = 8 * B * S * H * dh * dh + SLSTM_GATE_OPS * B * S * H * dh
+    """The sLSTM recurrence of one layer as the kernel computes it: each
+    step's z and o products h_{t-1} rec[g] (2 dh^2 a row, head and gate),
+    the i and f gates factored through rec's row means (once, 2 H dh^2;
+    then per column and step a term xi / dh + h rho and its sum) and the
+    gates; xz, xi, xf, xo and rec in, the state (h, c, n [B, H, dh], m
+    [B, H]) in and out, h out, all float32; ``saved`` (training) also c, n,
+    z, o and the head's three gate scalars of every step out."""
+    flops = 4 * B * S * H * dh * dh + 2 * H * dh * dh + SLSTM_GATE_OPS * B * S * H * dh
     state = 3 * B * H * dh + B * H
     words = 5 * B * S * H * dh + 4 * H * dh * dh + 2 * state
     if saved:

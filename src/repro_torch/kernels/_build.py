@@ -8,6 +8,9 @@ this directory. The output directory ``build/repro_torch_kernels/<hash>/``
 sources, the headers and the flags, so an edited source or header is rebuilt
 and an unchanged one is reused. All sources compile in
 parallel, one ``nvcc`` each. A failed build raises with nvcc's stderr.
+``load_variant`` builds one kernel again with an extra flag (a diagnostic
+``-D``, e.g. the phase clocks of the ``phases`` tools) into
+``variants/<flag>/`` of the same directory.
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent
 REPO_ROOT = _PKG.parents[2]
@@ -102,13 +106,68 @@ def build_log() -> str:
                    if (d / f"{n}.log").exists())
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build if needed and load kernel library ``name`` (once per process)."""
-    lib = ctypes.CDLL(str(build_all()[name]))
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load kernel library ``name`` (once per process)."""
+    return _open(build_all()[name])
+
+
+def variant_dir(flag: str) -> Path:
+    """Where ``load_variant`` builds the libraries compiled with ``flag``."""
+    return build_dir() / "variants" / flag.removeprefix("-D")
+
+
+@functools.cache
+def load_variant(name: str, flag: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load kernel library ``name``
+    compiled with the extra nvcc ``flag``, into ``variant_dir(flag)``
+    beside the served libraries; nvcc's output goes to ``<name>.log``
+    there (``variant_log``). The caller binds the variant's own entry
+    points."""
+    out_dir = variant_dir(flag)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"lib{name}.so"
+    if not path.exists():
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = command(_nvcc(), name, tmp)
+        proc = subprocess.run([cmd[0], flag, *cmd[1:]], capture_output=True, text=True)
+        (out_dir / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {name} with {flag} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)
+    return _open(path)
+
+
+def variant_log(name: str, flag: str) -> str:
+    """nvcc/ptxas output of ``load_variant(name, flag)``'s build."""
+    return (variant_dir(flag) / f"{name}.log").read_text()
+
+
+def ptxas_registers(log: str) -> List[list]:
+    """[kernel, registers, spill stores] of each entry function in a
+    ptxas ``-v`` log (ptxas prints a kernel's spills before its registers)."""
+    out, kernel, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spills = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append([kernel, int(m.group(1)), spills])
+            kernel = None
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.decode_attention.phases
 
-Builds ``csrc/decode_attention.cu`` with ``-DREPRO_DECODE_PHASES``, into a
-``phases/`` directory beside the served library: thread 0 of each block adds
+Builds ``csrc/decode_attention.cu`` with ``-DREPRO_DECODE_PHASES``, into
+``_build.variant_dir`` beside the served library: thread 0 of each block adds
 up the ``clock()`` cycles of each phase as it sees them after the block's
 barriers (``PHASES``, the order of the kernel's ``enum Phase``). Launches it
 at the serving decode shapes (bf16, every slot valid, caches rotated so
@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
 import subprocess
 import sys
 
@@ -35,23 +34,12 @@ SHAPES = {"qwen2-7b": (4, 28, 4, 544, 128, 16),
           "recurrentgemma-2b": (4, 10, 1, 544, 256, 48)}
 
 
+FLAG = "-DREPRO_DECODE_PHASES"
+
+
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and bind the diagnostic library."""
-    out_dir = _build.build_dir() / "phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / "libdecode_attention.so"
-    if not path.exists():
-        tmp = out_dir / "libdecode_attention.so.tmp"
-        cmd = _build.command(_build._nvcc(), "decode_attention", tmp)
-        proc = subprocess.run([cmd[0], "-DREPRO_DECODE_PHASES", *cmd[1:]],
-                              capture_output=True, text=True)
-        (out_dir / "decode_attention.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the phase build:\n{proc.stderr}")
-        tmp.replace(path)
-    lib = ops._bind(ctypes.CDLL(str(path)))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+    lib = ops._bind(_build.load_variant("decode_attention", FLAG))
     lib.decode_phase_cycles_read.argtypes = [ctypes.POINTER(ctypes.c_uint), ctypes.c_int]
     lib.decode_phase_cycles_read.restype = ctypes.c_int
     return lib
@@ -113,20 +101,7 @@ def measure(lib: ctypes.CDLL, B: int, H: int, K: int, L: int, hd: int, caches: i
 
 def registers() -> list:
     """(kernel, registers, spill stores) of the diagnostic build, from ptxas."""
-    log = (_build.build_dir() / "phases" / "decode_attention.log").read_text()
-    out, name, spills = [], None, 0
-    for line in log.splitlines():          # ptxas prints spills before registers
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, spills = m.group(1), 0
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spills = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append([name, int(m.group(1)), spills])
-            name = None
-    return out
+    return _build.ptxas_registers(_build.variant_log("decode_attention", FLAG))
 
 
 def main() -> int:

@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.queue_core.phases
 
-Builds ``csrc/queue_core.cu`` with ``-DREPRO_QUEUE_PHASES``, into a
-``phases/`` directory beside the served library: thread 0 of each block adds
+Builds ``csrc/queue_core.cu`` with ``-DREPRO_QUEUE_PHASES``, into
+``_build.variant_dir`` beside the served library: thread 0 of each block adds
 up the ``clock()`` cycles of each phase as it sees them (``PHASES``, the
 order of the kernel's ``enum Phase``: the job's tables and checks, t and s
 loads and each 32 requests' latencies, the interval search, the insert or
@@ -40,21 +40,7 @@ CHAIN = ("loads", "search", "insert")
 
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and bind the diagnostic library."""
-    out_dir = _build.build_dir() / "phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / "libqueue_core.so"
-    if not path.exists():
-        tmp = out_dir / "libqueue_core.so.tmp"
-        cmd = _build.command(_build._nvcc(), "queue_core", tmp)
-        proc = subprocess.run([cmd[0], "-DREPRO_QUEUE_PHASES", *cmd[1:]],
-                              capture_output=True, text=True)
-        (out_dir / "queue_core.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the phase build:\n{proc.stderr}")
-        tmp.replace(path)
-    lib = ops._bind(ctypes.CDLL(str(path)))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+    lib = ops._bind(_build.load_variant("queue_core", "-DREPRO_QUEUE_PHASES"))
     lib.queue_phase_cycles_read.argtypes = [ctypes.POINTER(ctypes.c_uint), ctypes.c_int]
     lib.queue_phase_cycles_read.restype = ctypes.c_int
     return lib

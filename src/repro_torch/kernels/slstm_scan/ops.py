@@ -7,11 +7,11 @@ the ``h, c, n, m`` state of ``init_slstm_cache``; it returns h
 ``[B, S, H, dh]`` and the final state. A CPU tensor goes to the plain
 version (``ref.py``). A CUDA tensor launches ``csrc/slstm_scan.cu``'s
 forward kernel, one launch a call (decode is the same launch at S = 1), or
-raises. The kernel's blocks of a head wait on each other, so its grid must
-be resident at once: ``scan_plan`` picks the columns a block from the
-card's SMs and shared memory and raises ``ValueError`` where no such grid
-exists; the kernel's host side checks the occupancy again before it
-launches.
+raises. The kernel runs one thread-block cluster a head and group of batch
+rows: ``scan_plan`` picks the blocks a cluster (the smallest power of two
+up to 16 whose blocks fit in shared memory), the columns a block and the
+rows a cluster, and raises ``ValueError`` where no cluster holds a head.
+Clusters never wait on one another, so the grid need not be resident.
 
 Training: where autograd records (grad mode on and an input that requires
 grad), ``slstm_scan`` runs through ``SLSTMScanFunction``. Its forward is the
@@ -29,10 +29,11 @@ atomics on floats: a second call gives the same bits.
 ``slstm_scan_backward.launches`` backward ones.
 
 A ``meta`` tensor (the dry run's) takes the CUDA path up to the launch,
-forward and backward: outputs, saved values and scratch of the kernels'
-shapes (the plan of an H100's ``H100_SMS`` SMs), and no launch. On ``meta``
-and on the card each kernel call reports its work (``cost.kernels.slstm``,
-``cost.kernels.slstm_backward``) to an active cost counter.
+forward and backward: outputs and saved values of the kernels' shapes (the
+plan, of an H100's ``H100_SMS`` SMs, is made and checked), and no launch.
+On ``meta`` and on the card each kernel call reports its work
+(``cost.kernels.slstm``, ``cost.kernels.slstm_backward``) to an active
+cost counter.
 """
 from __future__ import annotations
 
@@ -49,86 +50,100 @@ from repro_torch.kernels.slstm_scan.ref import (Saved, State, recurrent_grad,
                                                 slstm_scan_reference)
 
 THREADS = 256             # threads a block (csrc/slstm_scan.cu)
-BT = 4                    # batch rows a pass of a block's products
-MAX_BATCH = THREADS       # a thread a row for the head's scalar gates
+WARPS = THREADS // 32     # slices of a block's products
+MAX_CLUSTER = 16          # blocks a cluster: Hopper's non-portable maximum
+MAX_ROWS = 8              # batch rows a cluster
+RING = 4                  # steps of inputs a thread keeps in flight, plus one
 SMEM_LIMIT = 232448       # dynamic shared bytes a block may take on Hopper
 H100_SMS = 132            # the plan on meta (no card to ask)
 STATE = ("h", "c", "n", "m")
 
 
 class ScanPlan(NamedTuple):
-    """``columns`` of a head a block (C) and ``blocks`` a head (P =
-    ceil(dh / C)); the grid is H x P blocks."""
+    """``columns`` of a head a block (C = ceil(dh / P)), ``blocks`` a
+    cluster (P), batch ``rows`` a cluster (Bc) and row ``groups``
+    (ceil(B / Bc)); the grid is H x groups clusters of P blocks."""
     columns: int
     blocks: int
+    rows: int
+    groups: int
 
 
-def _slices(outputs: int) -> int:
-    return THREADS // outputs if outputs < THREADS else 1
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
-def forward_smem_floats(B: int, dh: int, C: int) -> int:
-    """Shared floats of a forward block (``FwdSmem``): its slice of rec
-    [dh, 4C], h_{t-1} [B, dh], the products' row-slice sums of a pass of BT
-    rows, the pre-activations [B, 4C], six [B, C] arrays and four scalars a
-    row."""
-    O = 4 * C
-    return 4 * dh * C + B * dh + _slices(O) * BT * O + B * O + 6 * B * C + 4 * B
+def forward_smem_floats(Bc: int, dh: int, C: int, P: int) -> int:
+    """Shared floats of a forward block (``FwdSmem``): rec's z and o
+    columns [dh, 2C], h_{t-1} of the head [2, Bc, dh] by parity, the
+    products' slice sums, the blocks' partials [2, P, Bc, 2], rho_i and
+    rho_f, a row's terms [2, Bc C] and the ring of gate inputs (dh rounded
+    up to a multiple of 4, every region to 16 bytes)."""
+    D4, O = _r4(dh), 2 * C
+    return (D4 * O + 2 * Bc * D4 + _r4(WARPS * Bc * O) + _r4(4 * P * Bc) + _r4(2 * C)
+            + _r4(2 * Bc * C) + RING * 4 * THREADS)
 
 
-def backward_smem_floats(B: int, dh: int, C: int) -> int:
-    """Shared floats of a backward block (``BwdSmem``): its rows of rec's z
-    and o gates [2 dh, C] and the i and f gates' row sums, dpre_z and dpre_o
-    of the head [B, 2 dh], the products' row-slice sums of a pass of BT
-    rows, five [B, C] arrays and eight scalars a row."""
-    return 2 * dh * C + 2 * C + B * 2 * dh + _slices(C) * BT * C + 5 * B * C + 8 * B
+def backward_smem_floats(Bc: int, dh: int, C: int, P: int) -> int:
+    """Shared floats of a backward block (``BwdSmem``): its rows of rec's
+    z and o gates [2 dh, C], the i and f gates' row sums, dpre_z and dpre_o
+    of the head [2, Bc, 2 dh] by parity, the products' slice sums, the
+    partials, a row's terms and the ring of saved values."""
+    D4 = _r4(dh)
+    return (2 * D4 * C + _r4(2 * C) + 4 * Bc * D4 + _r4(WARPS * Bc * C) + _r4(4 * P * Bc)
+            + _r4(2 * Bc * C) + RING * 8 * THREADS)
 
 
-def _fits(B: int, dh: int, C: int) -> bool:
-    return 4 * max(forward_smem_floats(B, dh, C), backward_smem_floats(B, dh, C)) <= SMEM_LIMIT
+def _fits(Bc: int, dh: int, C: int, P: int) -> bool:
+    return Bc * C <= THREADS and 4 * max(forward_smem_floats(Bc, dh, C, P),
+                                         backward_smem_floats(Bc, dh, C, P)) <= SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=256)
 def scan_plan(B: int, H: int, dh: int, sms: int) -> ScanPlan:
-    """The kernels' plan on a card of ``sms`` SMs: a whole head a block
-    where its forward and backward fit in one block's shared memory (no
-    cross-block barrier); else the fewest columns a block that keep the
-    H x P blocks to one an SM, so that they are resident at once (C 16, P 32
-    at xlstm-1.3b's H 4, dh 512 on 132 SMs). Raises ``ValueError`` where
-    no such grid exists."""
+    """The kernels' plan on a card of ``sms`` SMs: P the smallest power of
+    two up to 16 for which a block of C = ceil(dh / P) columns fits in
+    shared memory, forward and backward, with one batch row (16 blocks of
+    32 columns at xlstm-1.3b's dh 512; one block at dh 128 or less); then
+    the most rows a cluster that fit, up to 8 and one thread a (row,
+    column), spread evenly over the fewest groups. Raises ``ValueError``
+    where no cluster holds a head.
+
+    ``sms`` only caps P. Whether a card runs a cluster of P such blocks at
+    all depends on how its SMs are grouped, which the plan cannot see;
+    ``residency`` asks the CUDA runtime on the card. The H100 SXM (132
+    SMs) runs 7 of the 16-block clusters at once; the 114-SM H100 PCIe's
+    plan is the same, but no such card has run it."""
     if min(B, H, dh, sms) < 1:
         raise ValueError(f"no sLSTM plan for B {B}, H {H}, dh {dh} on {sms} SMs")
-    if B > MAX_BATCH:
-        raise ValueError(f"the slstm_scan kernels take at most {MAX_BATCH} rows, got {B}")
-    if _fits(B, dh, dh):
-        return ScanPlan(dh, 1)
-    C = -(-H * dh // sms)
-    while C < dh and H * -(-dh // C) > sms:
-        C += 1
-    P = -(-dh // C)
-    if H * P > sms or not _fits(B, dh, C):
-        raise ValueError(f"no resident sLSTM grid for B {B}, H {H}, dh {dh} on {sms} SMs: "
-                         f"{H} x {P} blocks of {C} columns")
-    return ScanPlan(C, P)
+    P, limit = 1, min(MAX_CLUSTER, sms)
+    while not _fits(1, dh, -(-dh // P), P):
+        P *= 2
+        if P > limit:
+            raise ValueError(f"no sLSTM cluster of at most {limit} blocks holds a head of "
+                             f"dh {dh}")
+    C = -(-dh // P)
+    cap = max(r for r in range(1, MAX_ROWS + 1) if _fits(r, dh, C, P))
+    groups = -(-B // cap)
+    return ScanPlan(C, P, -(-B // groups), groups)
 
 
-def workspace_words(B: int, H: int, P: int) -> int:
-    """The kernels' scratch in 4-byte words: H barrier counters, then the
-    double-buffered partial sums [2, H, P, B, 2]."""
-    return H + 2 * H * P * B * 2
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("slstm_scan")
-    lib.slstm_scan_fwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.slstm_scan_bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.slstm_scan_residency.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.slstm_barrier_probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the entry points' argument and result types on a build of
+    ``csrc/slstm_scan.cu`` (the served one or a diagnostic one)."""
+    lib.slstm_scan_fwd.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.slstm_scan_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.slstm_scan_residency.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.slstm_barrier_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.slstm_scan_fwd, lib.slstm_scan_bwd, lib.slstm_scan_residency,
                lib.slstm_barrier_probe):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind(_build.load("slstm_scan"))
 
 
 @functools.cache
@@ -172,9 +187,11 @@ def _check_inputs(xz, xi, xf, xo, rec, state: State) -> None:
             raise ValueError("the slstm_scan kernels take contiguous tensors")
 
 
-def _launch(xz, xi, xf, xo, rec, state: State, with_saved: bool):
+def _launch(xz, xi, xf, xo, rec, state: State, with_saved: bool,
+            lib: Optional[ctypes.CDLL] = None):
     """The forward kernel for CUDA (or meta) tensors: h, the final state and,
-    ``with_saved``, the ``Saved`` values (else None)."""
+    ``with_saved``, the ``Saved`` values (else None). ``lib``: another
+    build of the kernels (the phase tool's)."""
     B, S, H, dh = xz.shape
     plan = card_plan(B, H, dh, xz.device)
     new = functools.partial(torch.empty, dtype=torch.float32, device=xz.device)
@@ -182,18 +199,17 @@ def _launch(xz, xi, xf, xo, rec, state: State, with_saved: bool):
     final = {k: new(tuple(state[k].shape)) for k in STATE}
     saved = (Saved(*(new((B, S, H, dh)) for _ in range(4)), new((B, S, H, 3)))
              if with_saved else None)
-    ws = new((workspace_words(B, H, plan.blocks),))
     if analysis.counting():
         analysis.report_kernel("slstm_scan", *work.slstm(B, S, H, dh, saved=with_saved))
     if xz.device.type == "meta":
         return h, final, saved
-    lib = _lib()
+    lib = lib or _lib()
     kept = saved if saved is not None else (None,) * 5
     ptrs = [t.data_ptr() if t is not None else None for t in (
         xz, xi, xf, xo, rec, *(state[k] for k in STATE), h, *(final[k] for k in STATE),
-        *kept, ws)]
+        *kept)]
     with torch.cuda.device(xz.device):
-        err = lib.slstm_scan_fwd(*ptrs, B, S, H, dh, *plan,
+        err = lib.slstm_scan_fwd(*ptrs, B, S, H, dh, *plan[:3],
                                  torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "slstm_scan")
     slstm_scan.launches += 1
@@ -225,47 +241,49 @@ def slstm_scan_backward(rec: torch.Tensor, state: State, h: torch.Tensor, saved:
     return (*dx, recurrent_grad(state["h"], h, dx))
 
 
-def _launch_backward(rec, state: State, h, saved: Saved, dh):
-    """The backward kernel for CUDA (or meta) tensors: dxz, dxi, dxf, dxo."""
+def _launch_backward(rec, state: State, h, saved: Saved, dh,
+                     lib: Optional[ctypes.CDLL] = None):
+    """The backward kernel for CUDA (or meta) tensors: dxz, dxi, dxf, dxo;
+    ``lib`` as for ``_launch``."""
     B, S, H, D = h.shape
     plan = card_plan(B, H, D, h.device)
     dh = dh.float().contiguous()        # autograd may hand over another layout
     dx = [torch.empty_like(h) for _ in range(4)]
-    ws = torch.empty(workspace_words(B, H, plan.blocks), dtype=torch.float32, device=h.device)
     if analysis.counting():
         analysis.report_kernel("slstm_scan_backward", *work.slstm_backward(B, S, H, D))
     if h.device.type != "meta":
-        lib = _lib()
+        lib = lib or _lib()
         ptrs = [t.data_ptr() for t in (rec, state["c"], state["n"], state["m"], *saved, dh,
-                                       *dx, ws)]
+                                       *dx)]
         with torch.cuda.device(h.device):
-            err = lib.slstm_scan_bwd(*ptrs, B, S, H, D, *plan,
+            err = lib.slstm_scan_bwd(*ptrs, B, S, H, D, *plan[:3],
                                      torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "slstm_scan_backward")
         slstm_scan_backward.launches += 1
     return dx
 
 
-def residency(B: int, dh: int, C: int, forward: bool = True) -> Tuple[int, int, int]:
-    """A forward (or backward) block's shared bytes at B rows, dh and C
-    columns, the blocks of it an SM holds and the card's SMs, from the CUDA
-    runtime (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib, out = _lib(), [ctypes.c_int(0) for _ in range(3)]
-    _build.check(lib, lib.slstm_scan_residency(int(forward), B, dh, C,
+def residency(plan: ScanPlan, dh: int, forward: bool = True) -> Tuple[int, int]:
+    """A forward (or backward) block's shared bytes under ``plan`` at dh,
+    and the clusters of P such blocks the card runs at once
+    (``cudaOccupancyMaxActiveClusters``; 0 would mean none fits)."""
+    lib, out = _lib(), [ctypes.c_int(0) for _ in range(2)]
+    C, P, Bc, _ = plan
+    _build.check(lib, lib.slstm_scan_residency(int(forward), Bc, dh, C, P,
                                                *(ctypes.byref(v) for v in out)),
                  "slstm_scan_residency")
     return tuple(v.value for v in out)
 
 
-def barrier_probe(H: int, P: int, n: int, smem_bytes: int,
+def barrier_probe(plan: ScanPlan, H: int, dh: int, n: int,
                   device: Optional[torch.device] = None) -> None:
-    """Launch ``n`` head barriers on the kernels' grid of H x P blocks of
-    ``smem_bytes`` shared bytes each (the forward's): the chain bound's
-    unit, timed by the caller."""
+    """Launch ``n`` cluster barriers on the forward's grid under ``plan``
+    (H x groups clusters of P blocks with the forward's shared memory): the
+    chain bound's unit, timed by the caller."""
     lib = _lib()
-    ws = torch.empty(H, dtype=torch.int32, device=device or "cuda")
-    with torch.cuda.device(ws.device):
-        err = lib.slstm_barrier_probe(ws.data_ptr(), H, P, n, smem_bytes,
+    C, P, Bc, groups = plan
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = lib.slstm_barrier_probe(H * groups, P, 4 * forward_smem_floats(Bc, dh, C, P), n,
                                       torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "slstm_barrier_probe")
 

@@ -1310,12 +1310,12 @@ def test_mlstm_chunk_under_autograd_launches_the_backward_on_the_card(cuda, dtyp
 # ----------------------------------------------------------------- sLSTM
 
 SLSTM_CASES = [  # (B, S, H, dh, a non-zero initial state)
-    (4, 512, 4, 512, False),     # xlstm-1.3b's serving prefill: 32 blocks a head
+    (4, 512, 4, 512, False),     # xlstm-1.3b's serving prefill: a cluster of 16 blocks a head
     (1, 2048, 4, 512, False),    # its training layer
     (4, 1, 4, 512, True),        # a decode step from the cache's state
     (8, 8, 4, 16, False),        # the launchers' reduced dh 16: one block a head
-    (2, 40, 2, 128, True),       # chip_smoke's small xLSTM model: 64 blocks of 2 columns
-    (3, 33, 3, 100, True),       # a whole head of 100 columns a block
+    (2, 40, 2, 128, True),       # chip_smoke's small xLSTM model: one block of 128 columns
+    (3, 33, 3, 100, True),       # a whole head of 100 columns a block, two row groups
 ]
 
 
@@ -1435,19 +1435,50 @@ def test_slstm_scan_under_autograd_launches_both_kernels_on_the_card(cuda):
     _assert_grads_close(got, ref, ("dxz", "dxi", "dxf", "dxo", "drec"), torch.float32, 1e-4)
 
 
-def test_slstm_plan_is_resident_and_the_wrapper_rejects(cuda):
+def test_slstm_kernels_in_row_groups(cuda):
+    """35 rows at xlstm-1.3b's heads: several clusters of 16 blocks a head,
+    forward and backward against the plain versions, second calls
+    bit-equal."""
     from repro_torch.kernels.slstm_scan import ops
-    for B, H, dh in ((4, 4, 512), (1, 4, 512), (8, 4, 16), (2, 2, 128)):
-        C, P = ops.card_plan(B, H, dh, torch.device("cuda"))
+    B, S, H, dh = 35, 48, 4, 512
+    plan = ops.card_plan(B, H, dh, torch.device("cuda"))
+    assert plan.blocks == 16 and plan.groups >= 2 and plan.rows * plan.groups >= B
+    x, rec, state = _slstm_inputs(cuda, B, S, H, dh, nonzero=True)
+    h, final, saved = ops._launch(*x, rec, state, with_saved=True)
+    h2, _, _ = ops._launch(*x, rec, state, with_saved=True)
+    h_ref, final_ref, saved_ref = ops.slstm_scan_reference(*x, rec, state, with_saved=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2)
+    _slstm_close(h, h_ref, "h")
+    for k in "hcnm":
+        _slstm_close(final[k], final_ref[k], k)
+    for name, g, r in zip(saved._fields, saved, saved_ref):
+        _slstm_close(g, r, name)
+    dh_out = _randn(cuda, B, S, H, dh, dtype=torch.float32)
+    got = ops.slstm_scan_backward(rec, state, h_ref, saved_ref, dh_out)
+    again = ops.slstm_scan_backward(rec, state, h_ref, saved_ref, dh_out)
+    ref = ops.slstm_scan_backward_reference(rec, state, h_ref, saved_ref, dh_out)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, ref, ("dxz", "dxi", "dxf", "dxo", "drec"), torch.float32, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_slstm_plan_is_resident_and_the_wrapper_rejects(cuda):
+    """Each plan's block takes the shared bytes ops.py counts, and the card
+    runs at least one of its clusters at once, forward and backward."""
+    from repro_torch.kernels.slstm_scan import ops
+    for B, H, dh in ((4, 4, 512), (1, 4, 512), (35, 4, 512), (8, 4, 16), (2, 2, 128)):
+        plan = ops.card_plan(B, H, dh, torch.device("cuda"))
+        C, P, Bc, _ = plan
         for forward, floats in ((True, ops.forward_smem_floats), (False, ops.backward_smem_floats)):
-            smem, per_sm, sms = ops.residency(B, dh, C, forward)
-            assert smem == 4 * floats(B, dh, C)
-            assert per_sm >= 1 and (P == 1 or per_sm * sms >= H * P)
+            smem, clusters = ops.residency(plan, dh, forward)
+            assert smem == 4 * floats(Bc, dh, C, P) <= ops.SMEM_LIMIT
+            assert clusters >= 1, (B, H, dh, forward)
     x, rec, state = _slstm_inputs(cuda, 2, 8, 4, 16)
     with pytest.raises(ValueError):
         ops.slstm_scan(x[0].double(), *x[1:], rec, state)
     with pytest.raises(ValueError):
         ops.slstm_scan(*x[:3], x[3].transpose(0, 1).contiguous().transpose(0, 1), rec, state)
-    x, rec, state = _slstm_inputs(cuda, 2, 8, 64, 512)
-    with pytest.raises(ValueError):                    # 64 heads of 512: no resident grid
+    x, rec, state = _slstm_inputs(cuda, 2, 8, 1, 1024)
+    with pytest.raises(ValueError):                    # a head too wide for 16 blocks
         ops.slstm_scan(*x, rec, state)

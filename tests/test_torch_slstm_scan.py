@@ -17,7 +17,7 @@
 * ``meta``: the kernels' shapes, no launch, and the work each call reports
   to the cost counter equal to ``cost.kernels.slstm``/``slstm_backward``;
   the sLSTM block's prefill, decode and train step reach the kernels.
-* The plan and the rejects.
+* The plan (one cluster a head and row group) and the rejects.
 
 Inputs are drawn with numpy from a seed: gate inputs N(0, 1), rec N(0,
 1/dh) as ``init_slstm_block`` draws it, and a non-zero initial state where
@@ -229,25 +229,31 @@ def test_the_slstm_block_reaches_the_kernels(step):
 
 
 def test_plan_at_the_model_shapes():
-    assert ops.scan_plan(4, 4, 512, 132) == (16, 32)          # xlstm-1.3b, serving
-    assert ops.scan_plan(1, 4, 512, 132) == (16, 32)          # training
-    assert ops.scan_plan(4, 4, 512, 114) == (19, 27)          # H100 PCIe: 108 blocks
-    assert ops.scan_plan(8, 4, 16, 132) == (16, 1)            # the launchers' reduced dh
-    assert ops.scan_plan(2, 2, 128, 132) == (2, 64)           # chip_smoke's small model
-    for B, H, dh, sms in ((4, 4, 512, 132), (1, 4, 512, 114), (2, 2, 128, 132), (3, 4, 64, 132)):
-        C, P = ops.scan_plan(B, H, dh, sms)
-        assert H * P <= sms or P == 1
-        assert (P - 1) * C < dh <= P * C
-        assert 4 * max(ops.forward_smem_floats(B, dh, C),
-                       ops.backward_smem_floats(B, dh, C)) <= ops.SMEM_LIMIT
+    """(C, P, Bc, groups): a cluster of 16 blocks of 32 columns a head at
+    xlstm-1.3b's dh 512, one block where a head fits in it."""
+    assert ops.scan_plan(4, 4, 512, 132) == (32, 16, 4, 1)    # xlstm-1.3b, serving
+    assert ops.scan_plan(1, 4, 512, 132) == (32, 16, 1, 1)    # training
+    assert ops.scan_plan(4, 4, 512, 114) == (32, 16, 4, 1)    # H100 PCIe
+    assert ops.scan_plan(35, 4, 512, 132) == (32, 16, 7, 5)   # 35 rows in five groups
+    assert ops.scan_plan(8, 4, 16, 132) == (16, 1, 8, 1)      # the launchers' reduced dh
+    assert ops.scan_plan(2, 2, 128, 132) == (128, 1, 2, 1)    # chip_smoke's small model
+    for B, H, dh, sms in ((4, 4, 512, 132), (1, 4, 512, 114), (2, 2, 128, 132), (3, 4, 64, 132),
+                          (3, 3, 100, 132), (300, 4, 16, 132), (64, 64, 512, 132)):
+        C, P, Bc, groups = ops.scan_plan(B, H, dh, sms)
+        assert P <= ops.MAX_CLUSTER and P & (P - 1) == 0 and C == -(-dh // P)
+        assert Bc * C <= ops.THREADS and Bc <= ops.MAX_ROWS and Bc * (groups - 1) < B <= Bc * groups
+        assert 4 * max(ops.forward_smem_floats(Bc, dh, C, P),
+                       ops.backward_smem_floats(Bc, dh, C, P)) <= ops.SMEM_LIMIT
     source = (Path(ops.__file__).parent / "csrc" / "slstm_scan.cu").read_text()
-    assert f"constexpr int THREADS = {ops.THREADS};" in source
-    assert f"constexpr int BT = {ops.BT};" in source
+    for name in ("THREADS", "MAX_CLUSTER", "MAX_ROWS", "RING"):
+        assert f"constexpr int {name} = {getattr(ops, name)};" in source, name
 
 
-@pytest.mark.parametrize("B,H,dh,sms", [(4, 64, 512, 132), (300, 4, 16, 132), (64, 4, 512, 132),
-                                        (0, 4, 16, 132)])
+@pytest.mark.parametrize("B,H,dh,sms", [(0, 4, 16, 132), (4, 4, 1024, 132), (1, 4, 512, 8),
+                                        (2, 0, 16, 132), (1, 1, 2048, 132)])
 def test_plan_raises_where_no_resident_grid_exists(B, H, dh, sms):
+    """No rows or heads, a head too wide for a cluster of 16 blocks (dh
+    1024, 2048), or fewer SMs than the cluster a head needs."""
     with pytest.raises(ValueError):
         ops.scan_plan(B, H, dh, sms)
 
@@ -264,8 +270,8 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
         ops.slstm_scan(x[0].double(), *x[1:], rec, state)
     with pytest.raises(ValueError):                     # contiguity
         ops.slstm_scan(*x[:3], x[3].transpose(0, 1).contiguous().transpose(0, 1), rec, state)
-    with pytest.raises(ValueError):                     # no resident grid
-        x, rec, state = _meta(2, 8, 64, 512)
+    with pytest.raises(ValueError):                     # a head too wide for a cluster
+        x, rec, state = _meta(2, 8, 1, 1024)
         ops.slstm_scan(*x, rec, state)
     with pytest.raises(ValueError):                     # one device
         cpu = torch.zeros(2, 8, 4, 16)
