@@ -1,0 +1,3 @@
+"""train.launches_per_step.musicgen: kernels the device ran in the traced steps,
+a step (each kernel is one launch)."""
+from portbench.core.readers import launches_per_step as read  # noqa: F401
